@@ -2,16 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds both hand-written CUDA kernels of the port from
-legged_mpc_control_tpu_torch/csrc with nvcc (sm_90a), holds each against its
-plain PyTorch version at the main path's shapes, then drives the main path
-(the batched Go1 trot closed loop, `parallel/runner.make_batched_rollout`)
-through its quality gates and times it at B=4096. Exits non-zero on any
+Builds every hand-written CUDA kernel of the port from
+legged_mpc_control_tpu_torch/csrc with nvcc (sm_90a, one nvcc per source,
+all at once), holds each against its plain PyTorch version at its path's
+shapes, then drives the paths of the batched Go1 trot closed loop
+(`parallel/runner.make_batched_rollout`) through their quality gates and
+times them at B=4096: Riccati with kf_type 0 (kernels K1, K2) and 1 (K1,
+K3), and the condensed PDIP and ADMM solvers (K4, K5, K2); then the
+condensed solve rate and the B=1 solve latencies. Exits non-zero on any
 failure and when no CUDA device is present. Diagnostics go to the earlier
 lines; the second-to-last line is a JSON object of the kernels, the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
+import concurrent.futures
+import contextlib
 import json
 import subprocess
 import sys
@@ -29,6 +34,45 @@ DT = 0.01
 B = 4096
 REPO_K1 = "legged_mpc_control_tpu/ops/riccati_pallas.py:438"
 REPO_K2 = "legged_mpc_control_tpu/ops/substep_pallas.py:777"
+REPO_K3 = "legged_mpc_control_tpu/ops/substep_pallas.py:777"
+REPO_K4 = "legged_mpc_control_tpu/ops/chol_pallas.py:247"
+REPO_K5 = "legged_mpc_control_tpu/ops/chol_pallas.py:271"
+CSRC = "legged_mpc_control_tpu_torch/csrc/"
+
+# the least time an H100 SXM could take (its datasheet peaks): bytes
+# over 3.35 TB/s, float32 operations over 67 TFLOP/s (outside the tensor
+# cores; these kernels do scalar float32 work)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by) of work moving `nbytes` and doing `flops`."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations"))
+
+
+# Operation counts per scenario, counted from the kernels' sources (a
+# transcendental counts as one operation).
+# K1 (csrc/riccati_ipm.cu), per stage and IPM iteration: the backward
+# factor sweep's eight 12x12x12 products (B^T W, T B, T A, A^T W, the two of
+# P, and the twelve 12x12 triangular solve pairs of K), its 12x12 Cholesky,
+# two LQR solve sweeps (four 12x12 matrix-vector products each) and the
+# dual-residual rollout and adjoint (two more).
+K1_FLOP_PER_STAGE_ITER = 2 * (8 * 12 ** 3 + 12 ** 3 // 6 + 2 * 4 * 12 ** 2
+                              + 2 * 12 ** 2)
+# K2 (csrc/substep_chain.cu): per substep and leg ~600 (Jacobian, three
+# rotations, two four-branch IKs with ~30 transcendentals each, two 3x3
+# solves, FK, the friction pyramid), per substep ~250 for the trunk; the
+# Feedback tail ~1,500.
+K2_FLOP_PER_SUBSTEP = 4 * 600 + 250
+K2_FLOP_TAIL = 1500
+# K3 adds per substep the filter: predict (~220), 28 rows of a column pick,
+# the correction and the 18x18 rank-1 update (~720 each), the
+# symmetrization (~300) and its sensor model (~460).
+K3_FLOP_PER_SUBSTEP = K2_FLOP_PER_SUBSTEP + 220 + 28 * 720 + 300 + 460
 
 
 class GateError(RuntimeError):
@@ -49,12 +93,55 @@ def done(t0):
     print(f"   ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+@contextlib.contextmanager
+def launch_counts():
+    """The kernel launches made inside the block, by kernel name: every
+    count is set to 0 just before the block and read just after."""
+    from legged_mpc_control_tpu_torch.ops import cuda_build
+
+    counts = {}
+    cuda_build.LAUNCHES.clear()
+    yield counts
+    counts.update(cuda_build.LAUNCHES)
+
+
+def check_launched(counts, names, path):
+    print(f"   kernel launches in the timed run: {counts}", flush=True)
+    check(all(counts.get(k, 0) > 0 for k in names),
+          f"a kernel of the {path} path was never launched")
+
+
+@contextlib.contextmanager
+def patched(module, **fns):
+    """Attributes of `module` replaced by `fns` inside the block. The launch
+    counts live in cuda_build.LAUNCHES, beside each launch, so a replaced
+    wrapper cannot redirect them."""
+    saved = {k: getattr(module, k) for k in fns}
+    for k, fn in fns.items():
+        setattr(module, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(module, k, fn)
+
+
+# ~30 ms of device spin ahead of a timed window (cuda_ms)
+SPIN_CYCLES = 50_000_000
+
+
 def cuda_ms(fn, reps):
-    """Mean device time of fn() over reps runs, after one warm-up."""
+    """Mean device time of fn() over reps runs, after one warm-up. The card
+    first spins for SPIN_CYCLES, so the host queues the runs of a short
+    kernel ahead of it and the events time the device's work, not the
+    host's launch gaps (which on a loaded host stretched K2's 0.46 ms to
+    0.65 ms). A run that synchronizes, as the plain versions may, still
+    waits for its host."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -108,9 +195,11 @@ def qp_problem(batch, horizon, dev):
 def phase_build():
     from legged_mpc_control_tpu_torch.ops import cuda_build
 
-    t0 = phase("build: nvcc sm_90a, both kernels")
-    for name in ("riccati_ipm", "substep_chain"):
-        so = cuda_build.build(name)
+    sources = ("riccati_ipm", "substep_chain", "chol_lanes")
+    t0 = phase(f"build: nvcc sm_90a, {len(sources)} sources in parallel")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(cuda_build.build, sources))
+    for so in built:
         log = so.with_suffix(".log").read_text().splitlines()
         keep = [ln.strip() for ln in log
                 if "registers" in ln or "spill" in ln or "stack frame" in ln]
@@ -133,6 +222,17 @@ def phase_build():
 # float32 version within 2e-2 N, and the kernel is no farther from the
 # float64 answer than the plain float32 version is (x1.5 + 2e-2 N).
 K1_BRACKET = 2e-2
+
+
+def NX_IN_K1(H):
+    """Floats K1 reads per scenario: x0, x_ref, A_seq, B, contact, the two
+    weight vectors, mu and fz_max."""
+    return 12 + 12 * H + 144 * H + 144 + 4 * H + 24 + 2
+
+
+def NX_OUT_K1(H):
+    """Floats K1 writes per scenario: u, gap, the duals."""
+    return 12 * H + 1 + 24 * H
 
 
 def phase_k1(dev, card):
@@ -190,9 +290,13 @@ def phase_k1(dev, card):
             *args, DT, iters=15), reps=5)
         plain_ms = cuda_ms(lambda: riccati.solve_qp_riccati_batched(
             *args, DT, iters=15), reps=2)
+        b_ms, b_by = bound(
+            B * 4 * (NX_IN_K1(horizon) + NX_OUT_K1(horizon)),
+            B * horizon * 15 * K1_FLOP_PER_STAGE_ITER)
         print(f"   time ({card}): kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-              "ms per cold solve", flush=True)
-        stats[horizon] = dict(err=err, ms=ms, plain_ms=plain_ms)
+              f"ms per cold solve; bound {b_ms:.4f} ms ({b_by})", flush=True)
+        stats[horizon] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by)
         done(t0)
     return stats
 
@@ -260,10 +364,14 @@ def phase_k2(dev, card):
                  reps=20)
     plain_ms = cuda_ms(lambda: substep_kernel.substep_chain_plain(*args, **kw),
                        reps=3)
+    b_ms, b_by = bound(
+        B * 4 * (substep_kernel.N_IN + 1 + substep_kernel.N_OUT),
+        B * (8 * K2_FLOP_PER_SUBSTEP + K2_FLOP_TAIL))
     print(f"   time ({card}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          "per 8-substep chain", flush=True)
+          f"per 8-substep chain; bound {b_ms:.4f} ms ({b_by})", flush=True)
     done(t0)
-    return dict(err=err, ms=ms, plain_ms=plain_ms)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def phase_main(dev, card):
@@ -271,7 +379,6 @@ def phase_main(dev, card):
     port), then 10 timed walking ticks at B=4096 and the solve rate."""
     from legged_mpc_control_tpu_torch.config import go1_params
     from legged_mpc_control_tpu_torch.mpc import gait, riccati
-    from legged_mpc_control_tpu_torch.ops import riccati_kernel, substep_kernel
     from legged_mpc_control_tpu_torch.parallel import runner
 
     f32 = torch.float32
@@ -319,17 +426,12 @@ def phase_main(dev, card):
     walked = make(30, 4)(init(B, 0), params)[0]
     roll = make(10, 4, stand=0)
     torch.cuda.synchronize()
-    riccati_kernel.solve_qp_riccati_cuda.launches = 0
-    substep_kernel.substep_chain_cuda.launches = 0
-    t1 = time.perf_counter()
-    final, _ = roll(walked, params)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t1
-    launches = {"riccati_ipm": riccati_kernel.solve_qp_riccati_cuda.launches,
-                "substep_chain": substep_kernel.substep_chain_cuda.launches}
-    print(f"   kernel launches in the timed run: {launches}", flush=True)
-    check(all(n > 0 for n in launches.values()),
-          "a kernel of the main path was never launched")
+    with launch_counts() as launches:
+        t1 = time.perf_counter()
+        final, _ = roll(walked, params)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t1
+    check_launched(launches, ("riccati_ipm", "substep_chain"), "main")
     mean_h = float(final.sim.pos[:, 2].mean())
     check(0.2 < mean_h < 0.4, f"implausible closed-loop height {mean_h}")
     rate = B * 10 / elapsed
@@ -359,7 +461,549 @@ def phase_main(dev, card):
     print(f"   convex_mpc_solves_per_s_per_chip_go1_trot_h10 = {solves:.1f} "
           f"({card})", flush=True)
     done(t0)
-    return launches, rate, solves
+    return launches, rate, solves, walked
+
+
+KF_TOL = {"kf_x": 2e-3}     # tests/test_substep_fused.py's kf1 bracket
+KF_P_TOL = (2e-4, 2e-3)    # (atol, rtol), the same test's covariance bracket
+
+
+def init_batch(params, b, seed, dev):
+    from legged_mpc_control_tpu_torch.parallel import runner
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return runner.init_loop_batch(params, b, gen, height_range=(0.26, 0.30),
+                                  dtype=torch.float32, body_height=0.28,
+                                  device=dev)
+
+
+def phase_k3(dev, card):
+    """Kernel K3 (the substep chain with the in-chain KF) vs its plain
+    version, all 8 substeps, from mid-trot with a settled filter."""
+    from legged_mpc_control_tpu_torch.config import go1_params
+    from legged_mpc_control_tpu_torch.control import sensors, step
+    from legged_mpc_control_tpu_torch.mpc import convex_mpc, gait
+    from legged_mpc_control_tpu_torch.ops import substep_kernel
+    from legged_mpc_control_tpu_torch.parallel import runner
+
+    t0 = phase(f"K3 substep_chain kf_type 1 vs plain, B={B}, 8 substeps, "
+               "mid-trot")
+    f32 = torch.float32
+    params = go1_params(f32, dev)
+    pattern = gait.trot_pattern(f32, dev)
+    loop, _ = runner.make_batched_rollout(
+        pattern, n_ticks=30, pdip_iters=4, walk_velx=0.15, stand_ticks=20,
+        kf_type=1)(init_batch(params, B, 5, dev), params)
+    pb = step.broadcast_params(params, B)
+    cs, _ = convex_mpc.mpc_tick_batched(loop.controller, pb, pattern, DT,
+                                        horizon=10, iters=4)
+    sim = loop.sim
+    args = (sim.pos, sim.quat, sim.vel, sim.omega, sim.q, sim.dq,
+            sim.contact, sim.anchor, cs.ctrl.optimized_state,
+            cs.ctrl.optimized_input, cs.ctrl.movement_mode, pb.mass, pb.mu,
+            pb.kp_foot, pb.kd_foot, pb.trunk_inertia, pb.rho_fix,
+            pb.default_foot_pos, pb.gait_counter_speed,
+            sensors.contact_threshold(pb), cs.ctrl.root_lin_vel_d_rel)
+    kw = dict(substeps=8, dt=DT / 8, kf_type=1, kf_x=cs.kf.x, kf_P=cs.kf.P)
+    got = substep_kernel.substep_chain_cuda(*args, **kw)
+    want = substep_kernel.substep_chain_plain(*args, **kw)
+    torch.cuda.synchronize()
+    stance = float(sim.contact.float().mean())
+    est = float((cs.kf.x[:, 0:3] - sim.pos).abs().max())
+    print(f"   start: stance share {stance:.3f}, max |estimate - truth| "
+          f"{est:.3e} m", flush=True)
+    check(0.05 < stance < 0.95, "K3 start state is not mid-trot")
+    flips = int((got["contact"] != want["contact"]).any(-1).sum())
+    print(f"   scenarios whose contacts differ: {flips}", flush=True)
+    check(flips == 0, f"K3: contacts differ in {flips} scenarios")
+    err = 0.0
+    for name, tol in {**STATE_TOL, **KF_TOL}.items():
+        e = float((got[name] - want[name]).abs().max())
+        check(bool(torch.isfinite(got[name]).all()), f"K3 {name} non-finite")
+        print(f"   {name}: max err {e:.3e} (tol {tol})", flush=True)
+        check(e <= tol, f"K3 {name}: {e} > {tol}")
+        err = max(err, e)
+    atol, rtol = KF_P_TOL
+    dP = (got["kf_P"] - want["kf_P"]).abs()
+    over = float((dP - rtol * want["kf_P"].abs()).max())
+    print(f"   kf_P: max err {float(dP.max()):.3e} (tol {atol} + {rtol} "
+          "relative)", flush=True)
+    check(over <= atol, f"K3 kf_P: {over} over the bracket")
+    for name, (off, n) in substep_kernel.FB_ROWS.items():
+        e = float((got["fb"][:, off:off + n]
+                   - want["fb"][:, off:off + n]).abs().max())
+        check(e <= FB_TOL[name], f"K3 fb {name}: {e} > {FB_TOL[name]}")
+    ms = cuda_ms(lambda: substep_kernel.substep_chain_cuda(*args, **kw),
+                 reps=20)
+    plain_ms = cuda_ms(lambda: substep_kernel.substep_chain_plain(*args, **kw),
+                       reps=3)
+    n_kf = substep_kernel.N_KF
+    b_ms, b_by = bound(
+        B * 4 * (substep_kernel.N_IN + n_kf + 1 + substep_kernel.N_OUT + n_kf),
+        B * (8 * K3_FLOP_PER_SUBSTEP + K2_FLOP_TAIL))
+    print(f"   time ({card}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"per 8-substep chain; bound {b_ms:.4f} ms ({b_by})", flush=True)
+    done(t0)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def newton_matrices(batch, horizon, dev, iteration, iters=15):
+    """The Newton matrices K = P + G^T D G + reg I that the condensed PDIP
+    solve of the solve-rate problem factors at `iteration` (0-based), and a
+    right-hand side of that iteration: captured at the factor call."""
+    from legged_mpc_control_tpu_torch.mpc import pdip, qp_builder
+    from legged_mpc_control_tpu_torch.ops import chol_kernel
+
+    params, x0, contact, lin = qp_problem(batch, horizon, dev)
+    x_ref, A_seq, Bm = lin(x0)
+    qp = qp_builder.build_condensed_qp(
+        x0, x_ref, A_seq, Bm, contact, params.q_weights, params.r_weights,
+        params.mu, params.fz_max, DT)
+    calls, seen = [], []
+    factor = chol_kernel.cholesky_cuda
+
+    def capture(K):
+        if len(calls) == iteration:
+            seen.append(K.clone())
+        calls.append(1)
+        return factor(K)
+
+    with patched(chol_kernel, cholesky_cuda=capture):
+        pdip.solve_qp_pdip_batched(qp.P, qp.q, qp.mu, qp.fz_max, qp.contact,
+                                   iters=iters)
+    gen = torch.Generator(device=dev).manual_seed(iteration)
+    rhs = torch.randn((batch, 12 * horizon), generator=gen, device=dev)
+    return seen[0], rhs
+
+
+# The whole-solve bracket of the condensed PDIP in float32: with d clipped
+# at 1e6 and reg 1e-6 the float32 solve sits ~0.05 N from the float64 one
+# (CPU rehearsal of this phase at B=64), so two float32 solves are held to
+# 0.1 N for 99 % of the scenarios, and the kernels' to no farther from
+# float64 than the plain version (x1.5 + 0.1 N), both at the 99th
+# percentile. A float32 factorization that fails on a matrix within
+# rounding of singular freezes that scenario's solve early (the solver's
+# guard), and which few scenarios that hits differs between any two
+# factorizations, so the tail is held by its size: the kernels may leave
+# at most 3x as many scenarios beyond PDIP_BRACKET from float64 as the
+# plain version, plus PDIP_TAIL_SLACK.
+PDIP_BRACKET = 0.1
+PDIP_TAIL_SLACK = 8
+
+ROBUST_PIVOT = 1e-4
+
+# label -> (batch, horizon, 0-based PDIP iteration of the Newton matrix)
+CHOL_CASES = {"early": (B, 10, 0), "late": (B, 10, 14), "n=360": (512, 30, 0)}
+# the kernels line's max_abs_err for K4/K5 is the elementwise difference
+# from the plain version where every matrix is far from singular (the late
+# matrices are held by residuals instead)
+WELL_CONDITIONED = ("early", "n=360")
+
+
+def phase_chol(dev, card):
+    """Kernels K4 and K5 vs their plain versions on the Newton matrices of
+    a real B=4096, H=10 PDIP solve at an early and a late iteration, and at
+    n=360 (H=30, the device-memory path) with B=512. Factors are held by
+    the relative residual of L L^T - K, solves by that of K x - b (two
+    correct float32 factorizations of these matrices, whose scaling d is
+    clipped at 1e6, differ elementwise far beyond float32 resolution);
+    the kernel must stay within 4x of the plain version's residual plus
+    1e-6. Late in a solve many of these matrices are within float32
+    rounding of singular (frozen scenarios keep d at its clip): a float32
+    factorization may then fail, and the solver's guard freezes that
+    scenario. Which borderline matrices fail depends on the order of the
+    roundings, so the gate is that the kernel factors every matrix whose
+    float64 factorization keeps all pivots L_jj^2 >= ROBUST_PIVOT * K_jj
+    (there float32's backward error, ~n eps K_jj = 7e-6 K_jj, cannot
+    reach zero); the residuals are taken over the scenarios both factor.
+    Then whole PDIP solves are held by their GRFs, as K1 is."""
+    from legged_mpc_control_tpu_torch.ops import chol_kernel
+
+    def finite(M):
+        return torch.isfinite(M.reshape(M.shape[0], -1)).all(-1)
+
+    def factor_resid(F, K):
+        L = F.double().tril()
+        return float(((L @ L.transpose(-1, -2) - K.double()).abs()
+                      .amax(dim=(-1, -2)) / K.double().abs()
+                      .amax(dim=(-1, -2))).max())
+
+    def solve_resid(x, K, b):
+        r = (K.double() @ x.double()[..., None])[..., 0] - b.double()
+        return float((r.abs().amax(-1) / b.double().abs().amax(-1)).max())
+
+    stats = {}
+    for label, (batch, horizon, it) in CHOL_CASES.items():
+        n = 12 * horizon
+        t0 = phase(f"K4/K5 chol_lanes vs plain, B={batch}, n={n}, PDIP "
+                   f"Newton matrix of iteration {it + 1} ({label})")
+        K, rhs = newton_matrices(batch, horizon, dev, it)
+        F = chol_kernel.cholesky_cuda(K)
+        Fp = chol_kernel.cholesky_plain(K)
+        x = chol_kernel.cho_solve_cuda(F, rhs)
+        xp = chol_kernel.cho_solve_plain(Fp, rhs)
+        torch.cuda.synchronize()
+        ok_k, ok_p = finite(F), finite(Fp)
+        both = ok_k & ok_p
+        L64, info = torch.linalg.cholesky_ex(K.double())
+        pivot = torch.where(
+            info == 0, (L64.diagonal(dim1=-2, dim2=-1) ** 2
+                        / K.double().diagonal(dim1=-2, dim2=-1)).amin(-1),
+            torch.zeros_like(L64[:, 0, 0]))
+        del L64
+        robust = pivot >= ROBUST_PIVOT
+        n_k, n_p = int((~ok_k).sum()), int((~ok_p).sum())
+        n_kr, n_pr = int((~ok_k & robust).sum()), int((~ok_p & robust).sum())
+        print(f"   non-finite factors: kernel {n_k}, plain {n_p} of {batch};"
+              f" {int((~robust).sum())} matrices have a float64 pivot below "
+              f"{ROBUST_PIVOT} K_jj; failures among the others: kernel "
+              f"{n_kr}, plain {n_pr}", flush=True)
+        check(n_kr == 0, f"K4 {label}: {n_kr} robust matrices not factored")
+        check(bool(finite(x[both]).all()), f"K5 {label}: non-finite")
+        Fb = F[both]
+        check(bool(torch.equal(Fb, Fb.transpose(-1, -2))),
+              f"K4 {label}: the upper triangle does not mirror L")
+        rf, rfp = factor_resid(Fb, K[both]), factor_resid(Fp[both], K[both])
+        rs = solve_resid(x[both], K[both], rhs[both])
+        rsp = solve_resid(xp[both], K[both], rhs[both])
+        diag = K.diagonal(dim1=-2, dim2=-1)
+        err4 = float((Fb - Fp[both]).abs().max())
+        err5 = float((x[both] - xp[both]).abs().max())
+        print(f"   K diagonal in [{float(diag.min()):.3e}, "
+              f"{float(diag.max()):.3e}]; factor residual: kernel "
+              f"{rf:.3e}, plain {rfp:.3e}; solve residual: kernel {rs:.3e},"
+              f" plain {rsp:.3e}; max |F - F_plain| {err4:.3e}, max "
+              f"|x - x_plain| {err5:.3e}", flush=True)
+        check(rf <= 4 * rfp + 1e-6, f"K4 {label}: residual {rf} vs {rfp}")
+        check(rs <= 4 * rsp + 1e-6, f"K5 {label}: residual {rs} vs {rsp}")
+        entry = dict(
+            factor_resid=rf, solve_resid=rs, err4=err4, err5=err5,
+            ms4=cuda_ms(lambda: chol_kernel.cholesky_cuda(K), reps=10),
+            plain4=cuda_ms(lambda: chol_kernel.cholesky_plain(K), reps=3),
+            lib4=cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps=3),
+            ms5=cuda_ms(lambda: chol_kernel.cho_solve_cuda(F, rhs), reps=10),
+            plain5=cuda_ms(lambda: chol_kernel.cho_solve_plain(Fp, rhs),
+                           reps=3),
+            lib5=cuda_ms(lambda: torch.cholesky_solve(rhs[..., None],
+                                                      Fp.tril()), reps=3),
+            bound4=bound(2 * batch * n * n * 4, batch * n ** 3 / 3),
+            bound5=bound(batch * (n * n + 2 * n) * 4, batch * 2 * n * n))
+        print(f"   time ({card}): K4 kernel {entry['ms4']:.3f} ms, plain "
+              f"{entry['plain4']:.3f} ms, torch.linalg.cholesky_ex "
+              f"{entry['lib4']:.3f} ms, bound {entry['bound4'][0]:.4f} ms "
+              f"({entry['bound4'][1]}); K5 kernel {entry['ms5']:.3f} ms, "
+              f"plain {entry['plain5']:.3f} ms, torch.cholesky_solve "
+              f"{entry['lib5']:.3f} ms, bound {entry['bound5'][0]:.4f} ms "
+              f"({entry['bound5'][1]})", flush=True)
+        stats[label] = entry
+        done(t0)
+
+    t0 = phase(f"PDIP solve with K4/K5 vs plain vs float64, B={B}, H=10, "
+               "iters=15 cold")
+    params, x0, contact, lin = qp_problem(B, 10, dev)
+
+    def solve_marking(solve, frozen):
+        """`solve`, marking in `frozen` each scenario whose Newton direction
+        came out non-finite: the solver's guard freezes it there."""
+        def fn(F, b):
+            x = solve(F, b)
+            frozen.logical_or_(~torch.isfinite(x).all(-1))
+            return x
+        return fn
+
+    fro_k = torch.zeros((B,), dtype=torch.bool, device=dev)
+    with patched(chol_kernel, cho_solve_cuda=solve_marking(
+            chol_kernel.cho_solve_cuda, fro_k)):
+        u_k = condensed_solve(params, contact, lin, x0, 15).u
+    # the float32 plain and float64 solves run the same solver code with
+    # the plain factor and solve put in the kernels' place
+    fro_p, fro_64 = torch.zeros_like(fro_k), torch.zeros_like(fro_k)
+
+    def with_plain(frozen):
+        return patched(chol_kernel, cholesky_cuda=chol_kernel.cholesky_plain,
+                       cho_solve_cuda=solve_marking(
+                           chol_kernel.cho_solve_plain, frozen))
+
+    with with_plain(fro_p):
+        u_p = condensed_solve(params, contact, lin, x0, 15).u
+    p64 = params.replace(**{f: getattr(params, f).double() for f in (
+        "q_weights", "r_weights", "mu", "fz_max")})
+    with with_plain(fro_64):
+        u64 = condensed_solve(p64, contact.double(),
+                              lambda x: tuple(
+                                  a.double() for a in lin(x.float())),
+                              x0.double(), 15).u
+    check(bool(torch.isfinite(u_k).all()), "PDIP with K4/K5: non-finite")
+    d = (u_k - u_p).abs().amax(-1).double()
+    d_k64 = (u_k.double() - u64).abs().amax(-1)
+    d_p64 = (u_p.double() - u64).abs().amax(-1)
+    qs = [float(torch.quantile(d, q)) for q in (0.5, 0.9, 0.99)]
+    k99, p99 = (float(torch.quantile(x, 0.99)) for x in (d_k64, d_p64))
+    out_k, out_p = d_k64 > PDIP_BRACKET, d_p64 > PDIP_BRACKET
+    n_ok, n_op = int(out_k.sum()), int(out_p.sum())
+    print(f"   |u_kernels - u_plain| per scenario: p50 {qs[0]:.3e}, p90 "
+          f"{qs[1]:.3e}, p99 {qs[2]:.3e}, max {float(d.max()):.3e} N "
+          f"({int((d > PDIP_BRACKET).sum())} of {B} over {PDIP_BRACKET} N); "
+          f"vs float64: p99 kernels {k99:.3e}, plain {p99:.3e} N; max "
+          f"kernels {float(d_k64.max()):.3e}, plain "
+          f"{float(d_p64.max()):.3e} N", flush=True)
+    print(f"   scenarios over {PDIP_BRACKET} N from float64: kernels {n_ok} "
+          f"({int((out_k & fro_k).sum())} of them frozen by the guard), "
+          f"plain {n_op} ({int((out_p & fro_p).sum())} frozen); frozen in "
+          f"all: kernels {int(fro_k.sum())}, plain {int(fro_p.sum())}, "
+          f"float64 {int(fro_64.sum())} of {B}", flush=True)
+    check(qs[2] <= PDIP_BRACKET, f"PDIP: p99 GRF difference {qs[2]}")
+    check(k99 <= 1.5 * p99 + PDIP_BRACKET,
+          f"PDIP: p99 {k99} N from float64, plain {p99} N")
+    check(n_ok <= 3 * n_op + PDIP_TAIL_SLACK,
+          f"PDIP: {n_ok} scenarios over {PDIP_BRACKET} N from float64, "
+          f"plain {n_op}")
+    done(t0)
+
+    t0 = phase("K4 contract: a non-positive pivot gives non-finite values")
+    K, _ = newton_matrices(8, 10, dev, 0, iters=1)
+    K[3, 7, 7] = -1.0
+    F = chol_kernel.cholesky_cuda(K)
+    ok = [bool(torch.isfinite(F[i]).all()) for i in range(8)]
+    print(f"   finite per scenario: {ok}", flush=True)
+    check(ok == [True] * 3 + [False] + [True] * 4,
+          "K4 must give non-finite values exactly where a pivot fails")
+    done(t0)
+    return stats
+
+
+def phase_kf1(dev, card):
+    """The kf_type-1 closed loop: the gates of bench.py:203-222 at B=64 x
+    120 ticks (iters=4), fused vs unfused substeps, then 10 timed walking
+    ticks at B=4096."""
+    from legged_mpc_control_tpu_torch.config import go1_params
+    from legged_mpc_control_tpu_torch.mpc import gait
+    from legged_mpc_control_tpu_torch.parallel import runner
+
+    f32 = torch.float32
+    params = go1_params(f32, dev)
+    pattern = gait.trot_pattern(f32, dev)
+    velx = 0.15
+
+    def make(n, stand=20, fused=True):
+        return runner.make_batched_rollout(
+            pattern, horizon=10, n_ticks=n, pdip_iters=4, walk_velx=velx,
+            stand_ticks=stand, fused_substeps=fused, kf_type=1)
+
+    t0 = phase("kf_type 1 gates: B=64, 120 ticks, iters=4, estimator, fused "
+               "vs unfused")
+    loop64 = init_batch(params, 64, 9, dev)
+    final = make(120)(loop64, params)[0]
+    unfused = make(120, fused=False)(loop64, params)[0]
+    pos = final.sim.pos
+    z, x = pos[:, 2], pos[:, 0]
+    check(bool(torch.isfinite(pos).all()), "non-finite kf1 states")
+    err = (final.controller.kf.x[:, 0:3] - pos).abs()
+    ez, exy = float(err[:, 2].mean()), float(err[:, 0:2].mean())
+    print(f"   z in [{float(z.min()):.4f}, {float(z.max()):.4f}], min x "
+          f"{float(x.min()):.4f} m; KF error: z {ez:.4e} m, xy {exy:.4e} m",
+          flush=True)
+    check(float(z.min()) > 0.2 and float(z.max()) < 0.4, "fallen kf1")
+    check(float(x.min()) > 0.5 * velx, "no kf1 forward progress")
+    check(ez < 0.025, f"KF z estimate off truth by {ez} m")
+    check(exy < 0.04, f"KF xy drift {exy} m over 1.2 s")
+    dh = abs(float(z.mean() - unfused.sim.pos[:, 2].mean()))
+    dx = abs(float(x.mean() - unfused.sim.pos[:, 0].mean()))
+    print(f"   fused vs unfused substeps: mean height {dh:.3e} m, mean "
+          f"progress {dx:.3e} m", flush=True)
+    # the unfused loop's opening feedback pass steps the filter a ninth
+    # time every tick (the fused chain steps it 8 times, as on the TPU):
+    # its estimate, and so the height the controller holds, differs by
+    # ~1 cm over 120 ticks (under 1 mm over the 6 ticks of
+    # tests/test_torch_rollouts.py), so
+    # the kf0 bounds of this gate are doubled here
+    check(dh < 0.02, f"kf1 fused vs unfused differ in height: {dh}")
+    check(dx < 0.04, f"kf1 fused vs unfused differ in progress: {dx}")
+    done(t0)
+
+    t0 = phase(f"kf_type 1 timed: B={B}, 10 walking ticks, iters=4, warm")
+    walked = make(30)(init_batch(params, B, 0, dev), params)[0]
+    roll = make(10, stand=0)
+    torch.cuda.synchronize()
+    with launch_counts() as launches:
+        t1 = time.perf_counter()
+        final, _ = roll(walked, params)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t1
+    check_launched(launches, ("riccati_ipm", "substep_chain_kf1"), "kf1")
+    mean_h = float(final.sim.pos[:, 2].mean())
+    check(0.2 < mean_h < 0.4, f"implausible kf1 height {mean_h}")
+    rate = B * 10 / elapsed
+    print(f"   closed_loop_scenario_ticks_per_s_b4096_kf1 = {rate:.1f} "
+          f"({card}; real-time bar {B * 100})", flush=True)
+    done(t0)
+    return launches["substep_chain_kf1"], rate
+
+
+SOLVER_ITERS = {"pdip": 8, "admm": 30}
+
+
+def phase_condensed(dev, card, walked):
+    """The condensed-solver closed loops: gates at B=64 x 120 ticks, the
+    mean |dpos| against the Riccati loop at iters=20, and 10 timed walking
+    ticks at B=4096 from the walked-in Riccati state (PDIP warm, 8
+    iterations; ADMM warm, 30)."""
+    from legged_mpc_control_tpu_torch.config import go1_params
+    from legged_mpc_control_tpu_torch.mpc import gait
+    from legged_mpc_control_tpu_torch.parallel import runner
+
+    f32 = torch.float32
+    params = go1_params(f32, dev)
+    pattern = gait.trot_pattern(f32, dev)
+    velx = 0.15
+
+    def make(solver, n, iters, stand=20):
+        return runner.make_batched_rollout(
+            pattern, horizon=10, n_ticks=n, pdip_iters=iters,
+            walk_velx=velx, stand_ticks=stand, solver=solver)
+
+    loop64 = init_batch(params, 64, 9, dev)
+    ref = make("riccati", 120, 20)(loop64, params)[0].sim.pos
+    out = {}
+    for solver, iters in SOLVER_ITERS.items():
+        t0 = phase(f"{solver} closed loop gates: B=64, 120 ticks, "
+                   f"{iters} iterations warm")
+        pos = make(solver, 120, iters)(loop64, params)[0].sim.pos
+        z, x = pos[:, 2], pos[:, 0]
+        check(bool(torch.isfinite(pos).all()), f"{solver}: non-finite")
+        dev_mean = float((pos - ref).abs().mean())
+        print(f"   z in [{float(z.min()):.4f}, {float(z.max()):.4f}], min x "
+              f"{float(x.min()):.4f} m; mean |dpos| vs riccati iters=20: "
+              f"{dev_mean:.3e} m", flush=True)
+        check(float(z.min()) > 0.2 and float(z.max()) < 0.4,
+              f"{solver}: fallen scenarios")
+        check(float(x.min()) > 0.5 * velx, f"{solver}: no forward progress")
+        done(t0)
+
+        t0 = phase(f"{solver} timed: B={B}, 10 walking ticks, {iters} "
+                   "iterations warm")
+        roll = make(solver, 10, iters, stand=0)
+        torch.cuda.synchronize()
+        with launch_counts() as launches:
+            t1 = time.perf_counter()
+            final, _ = roll(walked, params)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t1
+        check_launched(launches, ("chol_factor", "chol_solve",
+                                  "substep_chain"), solver)
+        mean_h = float(final.sim.pos[:, 2].mean())
+        check(0.2 < mean_h < 0.4, f"{solver}: implausible height {mean_h}")
+        rate = B * 10 / elapsed
+        print(f"   closed_loop_scenario_ticks_per_s_b4096_{solver}{iters} = "
+              f"{rate:.1f} ({card}; solver {solver}; real-time bar "
+              f"{B * 100})", flush=True)
+        out[solver] = dict(launches=launches, rate=rate)
+        done(t0)
+    return out
+
+
+def condensed_solve(params, contact, lin, x, iters, warm_u=None):
+    from legged_mpc_control_tpu_torch.mpc import pdip, qp_builder
+
+    x_ref, A_seq, Bm = lin(x)
+    qp = qp_builder.build_condensed_qp(
+        x, x_ref, A_seq, Bm, contact, params.q_weights, params.r_weights,
+        params.mu, params.fz_max, DT)
+    return pdip.solve_qp_pdip_batched(qp.P, qp.q, qp.mu, qp.fz_max,
+                                      qp.contact, iters=iters, warm_u=warm_u)
+
+
+def host_ms(fn, variants, reps):
+    """Mean host-clock time of fn(*variant) over reps calls, ending in a
+    synchronize, after one warm-up."""
+    fn(*variants[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(reps):
+        fn(*variants[i % len(variants)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t1) / reps * 1e3
+
+
+def phase_condensed_rate(dev, card):
+    """The condensed solve rate at B=4096, H=10, iters=15 (build + PDIP,
+    __graft_entry__.py:118-127) with the stance-load gate of
+    bench.py:68-74."""
+    t0 = phase(f"condensed solve rate: build + PDIP, B={B}, H=10, iters=15")
+    params, x0, contact, lin = qp_problem(B, 10, dev)
+    variants = [(x0 + 1e-3 * k,) for k in range(4)]
+
+    def solve(x):
+        return condensed_solve(params, contact, lin, x, 15).u[:, :12]
+
+    out = solve(x0)
+    check(bool(torch.isfinite(out).all()), "condensed: non-finite GRFs")
+    mass = float(params.mass)
+    fz = float(out[:, 2:12:3].sum(-1).mean())
+    check(0.3 * 9.8 * mass < fz < 2.0 * 9.8 * mass,
+          f"condensed: implausible stance load {fz}")
+    ms = host_ms(solve, variants, reps=8)
+    print(f"   mean stance load {fz:.2f} N; convex_mpc_solves_per_s_per_chip_"
+          f"go1_trot_h10_pdip = {B / ms * 1e3:.1f} ({card}; solver pdip)",
+          flush=True)
+    done(t0)
+    return B / ms * 1e3
+
+
+def phase_latency(dev, card):
+    """B=1 solve latencies of the condensed solvers (bench.py:242-372):
+    PDIP cold (15 iterations), ADMM warm (30, from a neighbouring tick's
+    200-iteration tuple) and PDIP warm (8, from the previous tick's
+    converged solution shifted to the next schedule); the warm runs are
+    gated against a converged 40-iteration PDIP solve to 0.5 N."""
+    from legged_mpc_control_tpu_torch.mpc import admm, qp_builder, riccati
+
+    t0 = phase("B=1 latencies: PDIP cold 15, ADMM warm 30, PDIP warm 8")
+    params, x0, contact, lin = qp_problem(1, 10, dev)
+    variants = [(x0 + 1e-4 * k,) for k in range(8)]
+    cold = host_ms(lambda x: condensed_solve(params, contact, lin, x, 15),
+                   variants, reps=30)
+
+    def build(x, c):
+        x_ref, A_seq, Bm = lin(x)
+        return qp_builder.build_condensed_qp(
+            x, x_ref, A_seq, Bm, c, params.q_weights, params.r_weights,
+            params.mu, params.fz_max, DT)
+
+    qp0 = build(x0, contact)
+    warm = admm.solve_qp_admm_batched(qp0.P, qp0.q, qp0.mu, qp0.fz_max,
+                                      contact, iters=200).warm
+
+    def admm_warm(x):
+        qp = build(x, contact)
+        return admm.solve_qp_admm_batched(qp.P, qp.q, qp.mu, qp.fz_max,
+                                          contact, iters=30, warm=warm).u
+
+    conv = condensed_solve(params, contact, lin, x0 + 1e-4, 40).u
+    e_admm = float((admm_warm(x0 + 1e-4) - conv).abs().max())
+    admm_ms = host_ms(admm_warm, variants, reps=30)
+
+    u_prev = condensed_solve(params, contact, lin, x0, 40).u
+    contact2 = torch.cat([contact[:, 1:], contact[:, -1:]], dim=1)
+    wu = riccati.warm_shift(u_prev, contact2)
+    got = condensed_solve(params, contact2, lin, x0 + 1e-4, 8, wu).u
+    want = condensed_solve(params, contact2, lin, x0 + 1e-4, 40, wu).u
+    e_pdip = float((got - want).abs().max())
+    pdip_ms = host_ms(
+        lambda x: condensed_solve(params, contact2, lin, x, 8, wu),
+        variants, reps=30)
+    print(f"   warm ADMM-30 off converged PDIP-40 by {e_admm:.3e} N; warm "
+          f"PDIP-8 off PDIP-40 by {e_pdip:.3e} N", flush=True)
+    check(e_admm < 0.5, f"warm ADMM-30 off converged by {e_admm} N")
+    check(e_pdip < 0.5, f"warm PDIP-8 off converged by {e_pdip} N")
+    lat = {"qp_solve_latency_ms_b1_h10_cold_pdip": cold,
+           "qp_solve_latency_ms_b1_h10_warm_admm30": admm_ms,
+           "qp_solve_latency_ms_b1_h10_warm_pdip8": pdip_ms}
+    for name, v in lat.items():
+        print(f"   {name} = {v:.3f} ({card})", flush=True)
+    done(t0)
+    return lat
 
 
 def main():
@@ -371,20 +1015,46 @@ def main():
     print(card, flush=True)
     k1 = phase_k1(dev, card)
     k2 = phase_k2(dev, card)
-    launches, rate, solves = phase_main(dev, card)
+    k3 = phase_k3(dev, card)
+    chol = phase_chol(dev, card)
+    launches, rate, solves, walked = phase_main(dev, card)
+    k3_launches, rate_kf1 = phase_kf1(dev, card)
+    loops = phase_condensed(dev, card, walked)
+    phase_condensed_rate(dev, card)
+    phase_latency(dev, card)
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
+    # the main path's shape, B=4096 and n=120, on the early matrices: the
+    # late ones' non-finite factors send the library solve down a path
+    # whose time varied 1.7-95 ms between runs
+    timed = chol["early"]
+    pdip_launches = loops["pdip"]["launches"]
+
+    def row(name, source, replaces, n, err, ms, plain_ms, bnd, lib_ms):
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": lib_ms}
+
     kernels = {"kernels": [
-        {"name": "riccati_ipm", "route": "cuda",
-         "source": "legged_mpc_control_tpu_torch/csrc/riccati_ipm.cu",
-         "replaces": REPO_K1, "launches": launches["riccati_ipm"],
-         "max_abs_err": max(k1[10]["err"], k1[30]["err"]),
-         "ms": k1[10]["ms"], "plain_ms": k1[10]["plain_ms"]},
-        {"name": "substep_chain", "route": "cuda",
-         "source": "legged_mpc_control_tpu_torch/csrc/substep_chain.cu",
-         "replaces": REPO_K2, "launches": launches["substep_chain"],
-         "max_abs_err": k2["err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]}]}
+        row("riccati_ipm", "riccati_ipm.cu", REPO_K1,
+            launches["riccati_ipm"], max(k1[10]["err"], k1[30]["err"]),
+            k1[10]["ms"], k1[10]["plain_ms"],
+            (k1[10]["bound_ms"], k1[10]["bound_by"]), None),
+        row("substep_chain", "substep_chain.cu", REPO_K2,
+            launches["substep_chain"], k2["err"], k2["ms"], k2["plain_ms"],
+            (k2["bound_ms"], k2["bound_by"]), None),
+        row("substep_chain_kf1", "substep_chain.cu", REPO_K3, k3_launches,
+            k3["err"], k3["ms"], k3["plain_ms"],
+            (k3["bound_ms"], k3["bound_by"]), None),
+        row("chol_factor", "chol_lanes.cu", REPO_K4,
+            pdip_launches["chol_factor"],
+            max(chol[c]["err4"] for c in WELL_CONDITIONED), timed["ms4"],
+            timed["plain4"], timed["bound4"], timed["lib4"]),
+        row("chol_solve", "chol_lanes.cu", REPO_K5,
+            pdip_launches["chol_solve"],
+            max(chol[c]["err5"] for c in WELL_CONDITIONED), timed["ms5"],
+            timed["plain5"], timed["bound5"], timed["lib5"])]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

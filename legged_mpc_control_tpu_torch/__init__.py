@@ -3,11 +3,16 @@
 The second package beside the JAX one (`legged_mpc_control_tpu`, the
 reference it is tested against); it imports no JAX. Module paths mirror the
 JAX package. The main path is the batched Go1 convex-MPC closed loop
-(`parallel/runner.make_batched_rollout`), with two hand-written CUDA kernels:
-the Riccati interior-point MPC solve (`ops/riccati_kernel.py`,
-`csrc/riccati_ipm.cu`) and the fused low-level/sim substep chain
-(`ops/substep_kernel.py`, `csrc/substep_chain.cu`). CUDA tensors run the
-kernels, CPU tensors their plain PyTorch versions.
+(`parallel/runner.make_batched_rollout`) with the solvers "riccati", "pdip"
+and "admm" and kf_type 0 (ground truth) or 1 (the linear KF), on
+hand-written CUDA kernels: the Riccati interior-point MPC solve
+(`ops/riccati_kernel.py`, `csrc/riccati_ipm.cu`), the fused low-level/sim
+substep chain with and without the in-chain KF (`ops/substep_kernel.py`,
+`csrc/substep_chain.cu`) and the batched Cholesky factor and solve of the
+condensed solvers (`ops/chol_kernel.py`, `csrc/chol_lanes.cu`). CUDA
+tensors run the kernels, CPU tensors their plain PyTorch versions. Entry
+points that build state from nothing default to the card; pass
+`device="cpu"` to build on the CPU.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -52,6 +52,18 @@ def param_base_ndims() -> dict:
     return dict(_BASE_NDIMS)
 
 
+def resolve_device(device) -> torch.device:
+    """The device a constructor builds its state on. Every function that
+    creates state from nothing defaults to the card (`device="cuda"`); with
+    no card such a call raises instead of building on the CPU unasked.
+    Functions handed tensors follow their tensors' device instead."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available: pass device='cpu' to "
+                           "build the state on the CPU")
+    return device
+
+
 def _rho_fix():
     """A1/Go1 leg geometry (reference: BaseInterface.cpp:76-89)."""
     ox = [0.1805, 0.1805, -0.1805, -0.1805]
@@ -62,8 +74,10 @@ def _rho_fix():
     return [list(r) for r in zip(ox, oy, d, lt, lc)]
 
 
-def a1_params(dtype=torch.float32, device=None) -> RobotParams:
+def a1_params(dtype=torch.float32, device="cuda") -> RobotParams:
     """Unitree A1. reference: config/gazebo_a1_convex.yaml."""
+    device = resolve_device(device)
+
     def f(v):
         return torch.tensor(v, dtype=dtype, device=device)
     return RobotParams(
@@ -88,9 +102,11 @@ def a1_params(dtype=torch.float32, device=None) -> RobotParams:
     )
 
 
-def go1_params(dtype=torch.float32, device=None) -> RobotParams:
+def go1_params(dtype=torch.float32, device="cuda") -> RobotParams:
     """Unitree Go1. reference: config/gazebo_go1_convex.yaml, with the
     hardware joint PD gains (kp 30 / kd 1.5), as the JAX package uses."""
+    device = resolve_device(device)
+
     def f(v):
         return torch.tensor(v, dtype=dtype, device=device)
     return a1_params(dtype, device).replace(

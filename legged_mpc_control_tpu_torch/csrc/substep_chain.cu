@@ -1,8 +1,11 @@
-// Kernel K2: every low-level/sim substep of one closed-loop MPC tick in one
-// launch (kf_type 0: the controller reads the true state).
+// Kernels K2 and K3: every low-level/sim substep of one closed-loop MPC tick
+// in one launch. K2 (kf_type 0): the controller reads the true state. K3
+// (kf_type 1): the 18-state contact-gated KF runs inside every substep and
+// the controller reads its estimate.
 //
 // Replaces: legged_mpc_control_tpu/ops/substep_pallas.py,
-//           substep_chain_fused with kf_type=0 (kernel body _make_kernel).
+//           substep_chain_fused with kf_type=0 (K2) and kf_type=1 (K3, the
+//           kf1 body of _make_kernel).
 // Plain version: legged_mpc_control_tpu_torch/ops/substep_kernel.py,
 //           substep_chain_plain (the per-substep loop of the ported modules).
 //
@@ -24,6 +27,22 @@
 // run there, and only the final state and the fb block are stored. Inputs
 // and outputs are packed (rows, B), batch innermost, so a warp's loads and
 // stores coalesce. Register spills are accepted for now.
+//
+// K3 adds the filter to every substep: the predict step and 28 sequential
+// scalar measurement rows (estimation/basic_kf.py). Each row's h has at
+// most two nonzeros, so P h is a column pick and a row costs O(18^2): the
+// rank-1 updates of the 18x18 covariance, ~9,000 FMAs a substep, are what
+// K3 adds. P (324 floats a scenario) cannot stay in registers beside K2's
+// state (K2 already spills), so it is a thread-local array: local memory,
+// which the hardware interleaves across a warp (coalesced, cached in L1).
+// Shared memory, element (i, j) of thread t at [(18 i + j) * 32 + t] (43 KB
+// a block of 32), was measured on the H100 as the other home and was ~13 %
+// slower (PERF.md). Blocks are 32 threads, so B=4096 spreads over 128 SMs.
+// The state estimate x (18 floats) stays in registers. K3 is a separate
+// instantiation (template <bool KF1>): kf_type 0 compiles to K2's code as
+// before. The filter's control input is the substep's own trunk
+// acceleration, which equals R a_imu + g of the plain version up to
+// rounding.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,6 +59,13 @@ constexpr int I_POS = 0, I_QUAT = 3, I_VEL = 7, I_OMEGA = 10, I_Q = 13,
 constexpr int O_POS = 0, O_QUAT = 3, O_VEL = 7, O_OMEGA = 10, O_Q = 13,
               O_DQ = 25, O_CONTACT = 37, O_ANCHOR = 41, O_LASTACC = 53,
               O_QT = 56, O_DQT = 68, O_TAUT = 80, O_FB = 92, N_OUT = 242;
+// kf_type 1 appends the filter state x (18) and P (18x18, row-major) to
+// both (ops/substep_kernel.py:KF_ROWS)
+constexpr int NS = 18;
+constexpr int I_KFX = N_IN, I_KFP = N_IN + NS, N_IN_KF = N_IN + NS + NS * NS;
+constexpr int O_KFX = N_OUT, O_KFP = N_OUT + NS,
+              N_OUT_KF = N_OUT + NS + NS * NS;
+constexpr int KF_THREADS = 32;
 
 // sim/srb_sim.py, control/safety.py, constants.py
 constexpr float LEG_INERTIA = 0.04f;
@@ -51,6 +77,13 @@ constexpr float JOINT_VEL_LIMIT = 30.0f;
 constexpr float GRAVITY_EST = 9.81f;
 constexpr float FOOT_DELTA_X_LIMIT = 0.8f;
 constexpr float FOOT_DELTA_Y_LIMIT = 0.8f;
+// estimation/basic_kf.py (reference: BasicKF.h:15-20)
+constexpr float KF_Q_PIMU = 0.01f;
+constexpr float KF_Q_VIMU = 0.01f;
+constexpr float KF_Q_PFOOT = 0.01f;
+constexpr float KF_R_PFOOT = 0.001f;
+constexpr float KF_R_VFOOT = 0.1f;
+constexpr float KF_R_ZFOOT = 0.001f;
 
 struct V3 {
   float x[3];
@@ -202,13 +235,131 @@ __device__ V3 ik(const V3& p, const V3& q_ref, const Leg& g) {
   return best;
 }
 
-__global__ void __launch_bounds__(64)
+// One sequential scalar row (estimation/basic_kf.py:sequential_update),
+// the column P h already in Ph: K = P h / s, dx += K inn, P -= K (P h)^T.
+// P is 18x18 row-major.
+__device__ void kf_row(float P[NS * NS], const float Ph[NS], float dx[NS],
+                       float s, float inn) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) dx[i] += Ph[i] / s * inn;
+#pragma unroll 1
+  for (int i = 0; i < NS; ++i) {
+    const float k = Ph[i] / s;
+#pragma unroll 6
+    for (int c = 0; c < NS; ++c) P[NS * i + c] -= k * Ph[c];
+  }
+}
+
+// One predict + update of the 18-state KF (estimation/basic_kf.py:kf_update,
+// reference BasicKF.cpp:72-167) at the substep's new state: rotation R,
+// body gyro, FK positions fpr and velocities fvr, contact beliefs cg with
+// their noise inflation infl, control input acc (world trunk acceleration).
+__device__ void kf_step(float x[NS], float P[NS * NS], const V3& acc,
+                        const M3& R, const V3& gyro, const V3 fpr[4],
+                        const V3 fvr[4], const float cg[4], const float infl[4], float dt) {
+  float xb[NS], dx[NS], Ph[NS];
+  auto p = [&](int i, int j) -> float& { return P[NS * i + j]; };
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    xb[i] = x[i];
+    dx[i] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    xb[i] = x[i] + dt * x[3 + i];
+    xb[3 + i] = x[3 + i] + dt * acc[i];
+  }
+  // P <- A P A^T + Q with A = I + dt E_{0:3, 3:6}
+#pragma unroll 1
+  for (int c = 0; c < NS; ++c)
+    for (int i = 0; i < 3; ++i) p(i, c) += dt * p(3 + i, c);
+#pragma unroll 1
+  for (int r = 0; r < NS; ++r)
+    for (int j = 0; j < 3; ++j) p(r, j) += dt * p(r, 3 + j);
+  for (int i = 0; i < 3; ++i) {
+    p(i, i) += KF_Q_PIMU * dt / 20.0f;
+    p(3 + i, 3 + i) += KF_Q_VIMU * dt * 9.8f / 20.0f;
+  }
+#pragma unroll
+  for (int l = 0; l < 4; ++l)
+    for (int a = 0; a < 3; ++a)
+      p(6 + 3 * l + a, 6 + 3 * l + a) += infl[l] * dt * KF_Q_PFOOT;
+
+  // rows 0..11: FK residuals, h = e_{6+3l+a} - e_a
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    const V3 Rf = mv(R, fpr[l]);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int j = 6 + 3 * l + a;
+      for (int i = 0; i < NS; ++i) Ph[i] = p(i, j) - p(i, a);
+      const float s = Ph[j] - Ph[a] + infl[l] * KF_R_PFOOT;
+      const float e0 = Rf[a] - (xb[j] - xb[a]);
+      kf_row(P, Ph, dx, s, e0 - (dx[j] - dx[a]));
+    }
+  }
+  // rows 12..23: leg-odometry velocities, h = e_{3+a}
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    const V3 cgp = cross(gyro, fpr[l]);
+    V3 lv;
+    for (int i = 0; i < 3; ++i) lv[i] = -fvr[l][i] - cgp[i];
+    const V3 Rlv = mv(R, lv);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int j = 3 + a;
+      for (int i = 0; i < NS; ++i) Ph[i] = p(i, j);
+      const float s = Ph[j] + infl[l] * KF_R_VFOOT;
+      const float y = (1.0f - cg[l]) * x[3 + a] + cg[l] * Rlv[a];
+      kf_row(P, Ph, dx, s, (y - xb[j]) - dx[j]);
+    }
+  }
+  // rows 24..27: foot heights, h = e_{8+3l}
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    const int j = 8 + 3 * l;
+    for (int i = 0; i < NS; ++i) Ph[i] = p(i, j);
+    const float s = Ph[j] + infl[l] * KF_R_ZFOOT;
+    const float y = (1.0f - cg[l]) * (x[2] + fpr[l][2]);
+    kf_row(P, Ph, dx, s, (y - xb[j]) - dx[j]);
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) x[i] = xb[i] + dx[i];
+
+  // symmetrize, then the xy-drift suppression (reference: BasicKF.cpp:146)
+#pragma unroll 1
+  for (int i = 0; i < NS; ++i)
+    for (int j = i + 1; j < NS; ++j) {
+      const float v = 0.5f * (p(i, j) + p(j, i));
+      p(i, j) = v;
+      p(j, i) = v;
+    }
+  if (p(0, 0) * p(1, 1) - p(0, 1) * p(1, 0) > 1e-6f) {
+    for (int i = 0; i < 2; ++i) {
+      for (int j = 0; j < 2; ++j) p(i, j) *= 0.1f;
+      for (int j = 2; j < NS; ++j) p(i, j) = p(j, i) = 0.0f;
+    }
+  }
+}
+
+template <bool KF1>
+__global__ void __launch_bounds__(KF1 ? KF_THREADS : 64)
 substep_chain_kernel(const float* __restrict__ in, const int* __restrict__ mode,
                      float* __restrict__ out, int B, int substeps, float dt) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   auto I = [&](int row) { return in[(size_t)row * B + b]; };
   auto O = [&](int row, float v) { out[(size_t)row * B + b] = v; };
+
+  // in-chain filter (K3): estimate in registers, covariance in local memory
+  float kx[NS], kP[NS * NS];
+  if constexpr (KF1) {
+    for (int i = 0; i < NS; ++i) kx[i] = I(I_KFX + i);
+    // P row by row, here and at the store: one flat loop over its 324
+    // entries compiles to ~3x the register spills (H100 build report)
+    for (int i = 0; i < NS; ++i)
+      for (int j = 0; j < NS; ++j) kP[NS * i + j] = I(I_KFP + NS * i + j);
+  }
 
   // world state
   V3 pos, vel, omega, anchor[4], q[4], dq[4];
@@ -268,8 +419,14 @@ substep_chain_kernel(const float* __restrict__ in, const int* __restrict__ mode,
       for (int i = 0; i < 3; ++i) {
         tff[l][i] = -(J[l].a[0][i] * f_rel[0] + J[l].a[1][i] * f_rel[1] +
                       J[l].a[2][i] * f_rel[2]);
-        d_pos[i] = ft_w[l][i] - pos[i];
-        d_vel[i] = ftv_w[l][i] - vel[i];
+        // the controller's root state: the truth (K2) or the estimate (K3)
+        if constexpr (KF1) {
+          d_pos[i] = ft_w[l][i] - kx[i];
+          d_vel[i] = ftv_w[l][i] - kx[3 + i];
+        } else {
+          d_pos[i] = ft_w[l][i] - pos[i];
+          d_vel[i] = ftv_w[l][i] - vel[i];
+        }
       }
       const V3 q_ik = ik(mtv(R, d_pos), q[l], leg[l]);
       const V3 dq_ik = solve3(J[l], mtv(R, d_vel));
@@ -387,6 +544,27 @@ substep_chain_kernel(const float* __restrict__ in, const int* __restrict__ mode,
       }
       contact[l] = new_contact[l];
     }
+
+    if constexpr (KF1) {
+      // === the 18-state KF at the new state (sensors of control/step.py:
+      // FK, leg velocities, the anchored foot-force contact belief) ===
+      const float thresh = I(I_THRESH);
+      const V3 gyro_body = mtv(R2, omega);
+      V3 fpr[4], fvr[4];
+      float cg[4], infl[4];
+      for (int l = 0; l < 4; ++l) {
+        fpr[l] = fk(q[l], leg[l]);
+        const M3 Jn = jac(q[l], leg[l]);
+        fvr[l] = mv(Jn, dq[l]);
+        V3 neg;
+        for (int i = 0; i < 3; ++i) neg[i] = -tff[l][i];
+        const float anf = fmaxf(mv(R2, solve3_t(Jn, neg))[2], 0.0f);
+        const float fs = contact[l] ? anf : 0.0f;
+        cg[l] = walking ? 1.0f / (1.0f + expf(-10.0f * (fs - thresh))) : 1.0f;
+        infl[l] = 1.0f + (1.0f - cg[l]) * 1e3f;
+      }
+      kf_step(kx, kP, acc, R2, gyro_body, fpr, fvr, cg, infl, dt);
+    }
   }
 
   for (int i = 0; i < 3; ++i) {
@@ -468,11 +646,14 @@ substep_chain_kernel(const float* __restrict__ in, const int* __restrict__ mode,
     const float cy = cosf(eul[2]), sy = sinf(eul[2]);
     const float vdx0 = I(I_VELD), vdy0 = I(I_VELD + 1);
     const float vdx = cy * vdx0 - sy * vdy0, vdy = sy * vdx0 + cy * vdy0;
-    const float k = sqrtf(fabsf(pos[2]) / 9.8f);
+    // the controller's root state: the truth (K2) or the estimate (K3)
+    const float rz = KF1 ? kx[2] : pos[2];
+    const float rvx = KF1 ? kx[3] : vel[0], rvy = KF1 ? kx[4] : vel[1];
+    const float k = sqrtf(fabsf(rz) / 9.8f);
     const float tf = (1.0f / I(I_GSPEED) / 2.0f) / 2.0f;
-    const float dx = fminf(fmaxf(k * (vel[0] - vdx) + tf * vdx,
+    const float dx = fminf(fmaxf(k * (rvx - vdx) + tf * vdx,
                                  -FOOT_DELTA_X_LIMIT), FOOT_DELTA_X_LIMIT);
-    const float dy = fminf(fmaxf(k * (vel[1] - vdy) + tf * vdy,
+    const float dy = fminf(fmaxf(k * (rvy - vdy) + tf * vdy,
                                  -FOOT_DELTA_Y_LIMIT), FOOT_DELTA_Y_LIMIT);
     for (int l = 0; l < 4; ++l) {
       O(row++, cy * dfp[l][0] - sy * dfp[l][1] + dx);
@@ -486,21 +667,38 @@ substep_chain_kernel(const float* __restrict__ in, const int* __restrict__ mode,
   const V3 imu_acc = mtv(R, sf);
   for (int i = 0; i < 3; ++i) O(row++, imu_acc[i]);              // imu_acc
   for (int i = 0; i < 3; ++i) O(row++, gyro_b[i]);               // imu_gyro
+
+  if constexpr (KF1) {
+    for (int i = 0; i < NS; ++i) O(O_KFX + i, kx[i]);
+    for (int i = 0; i < NS; ++i)
+      for (int j = 0; j < NS; ++j) O(O_KFP + NS * i + j, kP[NS * i + j]);
+  }
 }
 
 }  // namespace
 
-// rows of the packed input (which=0) and output (which=1)
-extern "C" int substep_chain_rows(int which) { return which == 0 ? N_IN : N_OUT; }
+// rows of the packed input (which=0) and output (which=1), kf_type 0 or 1
+extern "C" int substep_chain_rows(int which, int kf1) {
+  if (kf1) return which == 0 ? N_IN_KF : N_OUT_KF;
+  return which == 0 ? N_IN : N_OUT;
+}
 
-// Launch on `stream`: in (N_IN, B) f32, mode (B,) int32, out (N_OUT, B)
-// f32, batch innermost. Returns cudaGetLastError() after the launch.
+// Launch on `stream`: in (rows, B) f32, mode (B,) int32, out (rows, B)
+// f32, batch innermost; kf_type 1 runs K3 (rows with the filter state),
+// otherwise K2. Returns cudaGetLastError() after the launch.
 extern "C" int substep_chain_launch(const float* in, const int* mode,
                                     float* out, int B, int substeps, float dt,
-                                    void* stream) {
-  const int threads = 64;
-  const int blocks = (B + threads - 1) / threads;
-  substep_chain_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      in, mode, out, B, substeps, dt);
+                                    int kf_type, void* stream) {
+  if (B == 0) return 0;
+  if (kf_type == 1) {
+    const int blocks = (B + KF_THREADS - 1) / KF_THREADS;
+    substep_chain_kernel<true><<<blocks, KF_THREADS, 0, (cudaStream_t)stream>>>(
+        in, mode, out, B, substeps, dt);
+  } else {
+    const int threads = 64;
+    const int blocks = (B + threads - 1) / threads;
+    substep_chain_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        in, mode, out, B, substeps, dt);
+  }
   return (int)cudaGetLastError();
 }

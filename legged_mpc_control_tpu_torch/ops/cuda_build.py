@@ -6,8 +6,12 @@ package's `_build/` directory (git-ignored), named by a hash of the source
 and the flags so an edit rebuilds, and loaded with ctypes. Nothing is built
 when the package is imported, and nothing is built on a machine that never
 launches a kernel.
+
+`LAUNCHES` counts the kernel launches of every wrapper, by kernel name: each
+wrapper adds one where it launches its kernel, and nowhere else.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -20,6 +24,10 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel name -> launches: riccati_ipm (K1), substep_chain (K2),
+# substep_chain_kf1 (K3), chol_factor (K4), chol_solve (K5)
+LAUNCHES = collections.Counter()
 
 
 def _nvcc():
@@ -43,12 +51,13 @@ def build(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build under a temporary name, then rename: concurrent builders never
     # load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

@@ -8,6 +8,7 @@ from dataclasses import dataclass
 
 import torch
 
+from legged_mpc_control_tpu_torch.config import resolve_device
 from legged_mpc_control_tpu_torch.tree import Struct
 
 
@@ -19,7 +20,8 @@ class MovingWindowState(Struct):
 
 
 def moving_window_init(window: int, batch: int, dtype=torch.float32,
-                       device=None) -> MovingWindowState:
+                       device="cuda") -> MovingWindowState:
+    device = resolve_device(device)
     return MovingWindowState(
         buf=torch.zeros((batch, window), dtype=dtype, device=device),
         idx=torch.zeros((batch,), dtype=torch.int32, device=device),

@@ -102,9 +102,7 @@ def solve_qp_riccati_cuda(x0, x_ref, A_seq, Bmat, contact, q_weights,
         B, H, int(iters), float(dt), int(warm_u is not None),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "riccati_ipm")
-    solve_qp_riccati_cuda.launches += 1
+    cuda_build.LAUNCHES["riccati_ipm"] += 1
     u = u_t.permute(2, 0, 1).reshape(B, H * NX)
     return u, gap, lam_t.permute(3, 0, 1, 2)
 
-
-solve_qp_riccati_cuda.launches = 0

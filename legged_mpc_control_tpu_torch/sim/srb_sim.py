@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-from legged_mpc_control_tpu_torch.config import RobotParams
+from legged_mpc_control_tpu_torch.config import RobotParams, resolve_device
 from legged_mpc_control_tpu_torch.constants import GRAVITY_EST
 from legged_mpc_control_tpu_torch.models import kinematics as kin
 from legged_mpc_control_tpu_torch.ops import la3, so3
@@ -41,9 +41,10 @@ class SimState(Struct):
 
 
 def sim_init(params: RobotParams, heights, dtype=torch.float32,
-             device=None) -> SimState:
+             device="cuda") -> SimState:
     """Standing start: trunk at `heights` (B,) over flat ground, feet at the
     default stance under the hips. `params` unbatched."""
+    device = resolve_device(device)
     heights = torch.as_tensor(heights, dtype=dtype, device=device)
     B = heights.shape[0]
     pos = torch.zeros((B, 3), dtype=dtype, device=device)

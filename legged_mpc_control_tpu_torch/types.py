@@ -11,6 +11,7 @@ from dataclasses import dataclass
 
 import torch
 
+from legged_mpc_control_tpu_torch.config import resolve_device
 from legged_mpc_control_tpu_torch.mpc.gait import GaitLegState
 from legged_mpc_control_tpu_torch.ops.filters import MovingWindowState
 from legged_mpc_control_tpu_torch.tree import Struct, from_numpy, to_numpy
@@ -112,7 +113,9 @@ def _z(batch, shape, dtype, device):
     return torch.zeros((batch,) + tuple(shape), dtype=dtype, device=device)
 
 
-def init_feedback(batch, dtype=torch.float32, device=None) -> Feedback:
+def init_feedback(batch, dtype=torch.float32, device="cuda") -> Feedback:
+    device = resolve_device(device)
+
     def z(*shape):
         return _z(batch, shape, dtype, device)
     eye = torch.eye(3, dtype=dtype, device=device)
@@ -133,7 +136,9 @@ def init_feedback(batch, dtype=torch.float32, device=None) -> Feedback:
         foot_force_tau_est=z(4, 3), estimated_contacts=z(4))
 
 
-def init_ctrl(batch, dtype=torch.float32, device=None) -> Ctrl:
+def init_ctrl(batch, dtype=torch.float32, device="cuda") -> Ctrl:
+    device = resolve_device(device)
+
     def z(*shape):
         return _z(batch, shape, dtype, device)
     return Ctrl(
@@ -146,8 +151,10 @@ def init_ctrl(batch, dtype=torch.float32, device=None) -> Ctrl:
         joint_ang_tgt=z(12), joint_vel_tgt=z(12), joint_tau_tgt=z(12))
 
 
-def init_joy(batch, dtype=torch.float32, device=None,
+def init_joy(batch, dtype=torch.float32, device="cuda",
              body_height=0.3) -> JoyCmd:
+    device = resolve_device(device)
+
     def z():
         return _z(batch, (), dtype, device)
     return JoyCmd(

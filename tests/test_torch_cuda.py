@@ -13,7 +13,12 @@ import torch
 from legged_mpc_control_tpu_torch.config import go1_params
 from legged_mpc_control_tpu_torch.control import sensors, step
 from legged_mpc_control_tpu_torch.mpc import convex_mpc, gait, riccati
-from legged_mpc_control_tpu_torch.ops import riccati_kernel, substep_kernel
+from legged_mpc_control_tpu_torch.ops import (
+    chol_kernel,
+    cuda_build,
+    riccati_kernel,
+    substep_kernel,
+)
 from legged_mpc_control_tpu_torch.parallel import runner
 
 pytestmark = pytest.mark.cuda
@@ -29,8 +34,7 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.fixture(scope="module")
-def trotting(dev):
+def _trot(dev, kf_type):
     """A Go1 batch after 20 standing and 10 trotting ticks on the card."""
     params = go1_params(F32, dev)
     pattern = gait.trot_pattern(F32, dev)
@@ -39,8 +43,18 @@ def trotting(dev):
                                   body_height=0.28, device=dev)
     loop, _ = runner.make_batched_rollout(
         pattern, n_ticks=30, pdip_iters=4, walk_velx=0.15,
-        stand_ticks=20)(loop, params)
+        stand_ticks=20, kf_type=kf_type)(loop, params)
     return loop, step.broadcast_params(params, B), pattern
+
+
+@pytest.fixture(scope="module")
+def trotting(dev):
+    return _trot(dev, 0)
+
+
+@pytest.fixture(scope="module")
+def trotting_kf1(dev):
+    return _trot(dev, 1)
 
 
 @pytest.mark.parametrize("start", ["cold", "warm"])
@@ -55,10 +69,10 @@ def test_riccati_kernel_matches_plain(trotting, start):
         warm_u = riccati.warm_shift(
             riccati.solve_qp_riccati_batched(*args, iters=15)[0],
             stage.contact)
-    before = riccati_kernel.solve_qp_riccati_cuda.launches
+    before = cuda_build.LAUNCHES["riccati_ipm"]
     uk, gk, lk = riccati_kernel.solve_qp_riccati_cuda(*args, iters=15,
                                                       warm_u=warm_u)
-    assert riccati_kernel.solve_qp_riccati_cuda.launches == before + 1
+    assert cuda_build.LAUNCHES["riccati_ipm"] == before + 1
     up, gp, lp = riccati.solve_qp_riccati_batched(*args, iters=15,
                                                   warm_u=warm_u)
     u64 = riccati.solve_qp_riccati_batched(
@@ -83,8 +97,8 @@ def test_riccati_kernel_refuses_float64(dev):
             x[..., :4], x[0, 0], x[0, 0], 0.3, 180.0, 0.01)
 
 
-def test_substep_kernel_matches_plain(trotting):
-    loop, params, pattern = trotting
+def _chain(state):
+    loop, params, pattern = state
     cs, _ = convex_mpc.mpc_tick_batched(loop.controller, params, pattern,
                                         0.01, horizon=10, iters=4)
     sim = loop.sim
@@ -95,6 +109,11 @@ def test_substep_kernel_matches_plain(trotting):
             params.rho_fix, params.default_foot_pos,
             params.gait_counter_speed, sensors.contact_threshold(params),
             cs.ctrl.root_lin_vel_d_rel)
+    return cs, args
+
+
+def test_substep_kernel_matches_plain(trotting):
+    _, args = _chain(trotting)
     got = substep_kernel.substep_chain_cuda(*args, substeps=8, dt=0.00125)
     want = substep_kernel.substep_chain_plain(*args, substeps=8, dt=0.00125)
     assert torch.equal(got["contact"], want["contact"])
@@ -109,12 +128,102 @@ def test_substep_kernel_matches_plain(trotting):
 
 def test_rollout_on_the_card_launches_both_kernels(trotting):
     loop, _, pattern = trotting
-    riccati_kernel.solve_qp_riccati_cuda.launches = 0
-    substep_kernel.substep_chain_cuda.launches = 0
+    cuda_build.LAUNCHES.clear()
     final, (pos, _) = runner.make_batched_rollout(
         pattern, n_ticks=3, pdip_iters=4, walk_velx=0.15)(
         loop, go1_params(F32, loop.sim.pos.device))
-    assert riccati_kernel.solve_qp_riccati_cuda.launches == 3
-    assert substep_kernel.substep_chain_cuda.launches == 3
+    assert cuda_build.LAUNCHES == {"riccati_ipm": 3, "substep_chain": 3}
     assert bool(torch.isfinite(pos).all())
     assert 0.2 < float(final.sim.pos[:, 2].mean()) < 0.4
+
+
+def test_substep_kernel_kf1_matches_plain(trotting_kf1):
+    """K3: the chain with the in-chain KF, from a settled filter."""
+    cs, args = _chain(trotting_kf1)
+    kw = dict(substeps=8, dt=0.00125, kf_type=1, kf_x=cs.kf.x, kf_P=cs.kf.P)
+    before = cuda_build.LAUNCHES["substep_chain_kf1"]
+    got = substep_kernel.substep_chain_cuda(*args, **kw)
+    assert cuda_build.LAUNCHES["substep_chain_kf1"] == before + 1
+    want = substep_kernel.substep_chain_plain(*args, **kw)
+    assert torch.equal(got["contact"], want["contact"])
+    for name, tol in (("pos", 2e-4), ("quat", 2e-4), ("vel", 2e-3),
+                      ("omega", 5e-3), ("q", 2e-3), ("dq", 5e-2),
+                      ("anchor", 2e-4), ("q_tgt", 2e-3), ("dq_tgt", 5e-2),
+                      ("tau_ff", 1e-2), ("kf_x", 2e-3)):
+        assert float((got[name] - want[name]).abs().max()) <= tol, name
+    dP = (got["kf_P"] - want["kf_P"]).abs()
+    assert float((dP - 2e-3 * want["kf_P"].abs()).max()) <= 2e-4
+    assert float((got["fb"] - want["fb"]).abs().max()) <= 0.5
+
+
+def _spd(batch, n, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((batch, n, n), generator=gen, device=dev)
+    return A @ A.transpose(-1, -2) * 0.05 + 5.0 * torch.eye(n, device=dev)
+
+
+@pytest.mark.parametrize("n", [7, 120, 360])
+def test_chol_kernels_match_plain(dev, n):
+    """K4/K5 against the plain versions by residuals; n=360 takes the
+    device-memory path. The factor mirrors L into its upper triangle."""
+    K = _spd(B, n, dev, n)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b = torch.randn((B, n), generator=gen, device=dev)
+    before = (cuda_build.LAUNCHES["chol_factor"],
+              cuda_build.LAUNCHES["chol_solve"])
+    F = chol_kernel.cholesky_cuda(K)
+    x = chol_kernel.cho_solve_cuda(F, b)
+    assert (cuda_build.LAUNCHES["chol_factor"],
+            cuda_build.LAUNCHES["chol_solve"]) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert torch.equal(F, F.transpose(-1, -2))
+    L = F.double().tril()
+    K64 = K.double()
+    assert float((L @ L.transpose(-1, -2) - K64).abs().max()
+                 / K64.abs().max()) < 1e-5
+    r = (K64 @ x.double()[..., None])[..., 0] - b.double()
+    assert float(r.abs().max() / b.abs().max()) < 1e-5
+    Fp = chol_kernel.cholesky_plain(K)
+    assert float((F - Fp).abs().max()) < 1e-4
+
+
+def test_chol_kernel_non_positive_pivot(dev):
+    K = _spd(4, 12, dev, 3)
+    K[2, 5, 5] = -1.0
+    F = chol_kernel.cholesky_cuda(K)
+    finite = torch.isfinite(F.reshape(4, -1)).all(-1).tolist()
+    assert finite == [True, True, False, True]
+
+
+def test_chol_kernels_refuse_float64(dev):
+    K = torch.eye(4, dtype=torch.float64, device=dev).expand(2, 4, 4)
+    with pytest.raises(TypeError):
+        chol_kernel.cholesky_cuda(K)
+
+
+@pytest.mark.parametrize("solver,iters", [("pdip", 4), ("admm", 10)])
+def test_condensed_rollout_launches_the_chol_kernels(trotting, solver,
+                                                     iters):
+    loop, _, pattern = trotting
+    cuda_build.LAUNCHES.clear()
+    final, (pos, _) = runner.make_batched_rollout(
+        pattern, n_ticks=3, pdip_iters=iters, walk_velx=0.15,
+        solver=solver)(loop, go1_params(F32, loop.sim.pos.device))
+    factor = 3 * iters if solver == "pdip" else 3
+    solves = 2 * factor if solver == "pdip" else 3 * iters
+    assert cuda_build.LAUNCHES == {"chol_factor": factor,
+                                   "chol_solve": solves, "substep_chain": 3}
+    assert bool(torch.isfinite(pos).all())
+    assert 0.2 < float(final.sim.pos[:, 2].mean()) < 0.4
+
+
+def test_kf1_rollout_launches_the_kf1_chain(trotting_kf1):
+    loop, _, pattern = trotting_kf1
+    cuda_build.LAUNCHES.clear()
+    final, (pos, _) = runner.make_batched_rollout(
+        pattern, n_ticks=3, pdip_iters=4, walk_velx=0.15, kf_type=1)(
+        loop, go1_params(F32, loop.sim.pos.device))
+    assert cuda_build.LAUNCHES == {"riccati_ipm": 3, "substep_chain_kf1": 3}
+    assert bool(torch.isfinite(final.controller.kf.x).all())
+    assert float((final.controller.kf.x[:, 2] - final.sim.pos[:, 2])
+                 .abs().mean()) < 0.025

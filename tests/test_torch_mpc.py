@@ -79,7 +79,7 @@ def jax_gait():
 
 def test_gait_fsm_matches_jax(jax_gait):
     (states, contacts, preds), reset = jax_gait
-    pattern = tgait.trot_pattern(torch.float64)
+    pattern = tgait.trot_pattern(torch.float64, "cpu")
     s = tgait.gait_leg_init(pattern, B, torch.float64)
     for k in range(K_GAIT):
         s = tgait.gait_leg_update(s, pattern, DT, t(SPEED), t(FOOT_CUR[k]),
@@ -166,7 +166,7 @@ def test_mpc_prepare_matches_jax(prepare_case):
     loop_np, modes, pmap, trace = prepare_case
     cs = loop_state_from_numpy(loop_np).controller
     params = params_from_numpy(pmap)
-    pattern = tgait.trot_pattern(torch.float64)
+    pattern = tgait.trot_pattern(torch.float64, "cpu")
     for k in range(K_PREP):
         cs = cs.replace(ctrl=cs.ctrl.replace(movement_mode=t(modes[k])))
         cs, stage = tmpc.mpc_prepare(cs, params, pattern, DT, horizon=H)

@@ -113,7 +113,7 @@ def test_ik_inverts_fk(jax_out):
 
 
 def test_moving_window_matches_jax(jax_out):
-    st = tfil.moving_window_init(3, N, torch.float64)
+    st = tfil.moving_window_init(3, N, torch.float64, "cpu")
     for k in range(WINDOW_PUSHES.shape[0]):
         st, avg = tfil.moving_window_update(st, t(WINDOW_PUSHES[k]))
         close(avg, jax_out["window_avgs"][k], ATOL, what=f"push {k}")
@@ -125,7 +125,7 @@ def test_moving_window_matches_jax(jax_out):
 def test_params_from_numpy_matches_port_params(robot, dtype):
     jp = getattr(jcfg, robot)(getattr(jnp, dtype))
     got = tcfg.params_from_numpy(params_mapping(jp))
-    want = getattr(tcfg, robot)(getattr(torch, dtype))
+    want = getattr(tcfg, robot)(getattr(torch, dtype), "cpu")
     for name in tcfg.param_base_ndims():
         a, b = getattr(got, name), getattr(want, name)
         assert a.dtype == b.dtype, name

@@ -1,6 +1,7 @@
-"""Package hygiene of the PyTorch port: it imports no JAX, its kernel
-wrappers run the plain versions on CPU tensors without launching anything,
-its numpy converters round-trip exactly, and what is not ported yet raises."""
+"""Package hygiene of the PyTorch port: it imports no JAX, its entry points
+build on the card unless asked for the CPU, its kernel wrappers run the
+plain versions on CPU tensors without launching anything, its numpy
+converters round-trip exactly, and what is not ported yet raises."""
 
 import pkgutil
 import subprocess
@@ -19,12 +20,28 @@ from legged_mpc_control_tpu_torch.config import (
 )
 from legged_mpc_control_tpu_torch.control import step
 from legged_mpc_control_tpu_torch.mpc import convex_mpc, gait, riccati
-from legged_mpc_control_tpu_torch.ops import riccati_kernel, substep_kernel
+from legged_mpc_control_tpu_torch.ops import (
+    chol_kernel,
+    cuda_build,
+    filters,
+    riccati_kernel,
+    substep_kernel,
+)
 from legged_mpc_control_tpu_torch.parallel import runner
+from legged_mpc_control_tpu_torch.sim import srb_sim
+from legged_mpc_control_tpu_torch.tree import tree_map
 from legged_mpc_control_tpu_torch.types import (
+    init_ctrl,
+    init_feedback,
+    init_joy,
     loop_state_from_numpy,
     loop_state_to_numpy,
 )
+
+# a handful of scenarios: the intra-op thread pool costs more than it saves
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
 
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     pkg.__path__, prefix=pkg.__name__ + "."))
@@ -49,54 +66,55 @@ def test_port_imports_no_jax():
     assert int(out.stdout) >= 20
 
 
-def _small_loop(dtype=torch.float32, ticks=4):
-    """A B=4 Go1 batch after a few trotting ticks of the port on the CPU."""
-    params = go1_params(dtype)
+@pytest.fixture(scope="module")
+def small_loop():
+    """A B=4 Go1 batch after a few trotting ticks of the port on the CPU,
+    with the kernels' launch counts over that rollout."""
+    params = go1_params(torch.float32, CPU)
     loop = runner.init_loop_batch(params, 4, torch.Generator().manual_seed(2),
-                                  dtype=dtype, body_height=0.28)
+                                  dtype=torch.float32, body_height=0.28,
+                                  device=CPU)
     roll = runner.make_batched_rollout(
-        gait.trot_pattern(dtype), n_ticks=ticks, pdip_iters=6,
+        gait.trot_pattern(torch.float32, CPU), n_ticks=4, pdip_iters=6,
         walk_velx=0.2, stand_ticks=1)
+    cuda_build.LAUNCHES.clear()
     loop, _ = roll(loop, params)
-    return loop, step.broadcast_params(params, 4)
+    return (loop, step.broadcast_params(params, 4),
+            dict(cuda_build.LAUNCHES))
 
 
-def test_riccati_wrapper_on_cpu_is_the_plain_version():
-    loop, params = _small_loop()
-    pattern = gait.trot_pattern(torch.float32)
+def test_riccati_wrapper_on_cpu_is_the_plain_version(small_loop):
+    loop, params, _ = small_loop
+    pattern = gait.trot_pattern(torch.float32, CPU)
     _, stage = convex_mpc.mpc_prepare(loop.controller, params, pattern, 0.01,
                                       horizon=10)
     args = (stage.x0, stage.x_ref, stage.A_seq, stage.B, stage.contact,
             stage.q_weights, stage.r_weights, stage.mu, stage.fz_max, 0.01)
-    before = riccati_kernel.solve_qp_riccati_cuda.launches
     got = riccati_kernel.solve_qp_riccati_cuda(*args, iters=8)
     want = riccati.solve_qp_riccati_batched(*args, iters=8)
-    assert riccati_kernel.solve_qp_riccati_cuda.launches == before == 0
+    assert sum(cuda_build.LAUNCHES.values()) == 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
-def test_cpu_rollout_launches_no_kernel():
-    riccati_kernel.solve_qp_riccati_cuda.launches = 0
-    substep_kernel.substep_chain_cuda.launches = 0
-    loop, _ = _small_loop(ticks=2)
-    assert riccati_kernel.solve_qp_riccati_cuda.launches == 0
-    assert substep_kernel.substep_chain_cuda.launches == 0
+def test_cpu_rollout_launches_no_kernel(small_loop):
+    loop, _, launches = small_loop
+    assert sum(launches.values()) == 0
     assert bool(torch.isfinite(loop.sim.pos).all())
 
 
 @pytest.mark.parametrize("make", [a1_params, go1_params])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_params_round_trip(make, dtype):
-    p = make(dtype)
+    p = make(dtype, CPU)
     mapping = {k: getattr(p, k).numpy() for k in p.__dataclass_fields__}
     q = params_from_numpy(mapping)
     for k in p.__dataclass_fields__:
         assert torch.equal(getattr(q, k), getattr(p, k)), k
 
 
-def test_loop_state_round_trip():
-    loop, _ = _small_loop(ticks=2)
+def test_loop_state_round_trip(small_loop):
+    loop, _, _ = small_loop
     tree = loop_state_to_numpy(loop)
     assert isinstance(tree["sim"]["pos"], np.ndarray)
     back = loop_state_from_numpy(tree)
@@ -110,20 +128,24 @@ def test_loop_state_round_trip():
     assert same(tree, loop_state_to_numpy(back)) > 50
 
 
-def test_kf_type_1_raises():
-    loop, params = _small_loop(ticks=1)
-    pattern = gait.trot_pattern(torch.float32)
+def test_kf_type_2_raises(small_loop):
+    """The EKF (kf_type 2) is not ported: every entry point refuses it."""
+    loop, params, _ = small_loop
+    pattern = gait.trot_pattern(torch.float32, CPU)
     with pytest.raises(NotImplementedError):
-        step.closed_loop_tick_batched(loop, params, pattern, kf_type=1)
+        step.closed_loop_tick_batched(loop, params, pattern, kf_type=2)
     with pytest.raises(NotImplementedError):
-        runner.make_batched_rollout(pattern, kf_type=1)
+        runner.make_batched_rollout(pattern, kf_type=2)
     with pytest.raises(NotImplementedError):
+        substep_kernel.substep_chain_cuda(*([None] * 21), substeps=8,
+                                          dt=0.00125, kf_type=2)
+    with pytest.raises(ValueError):
         substep_kernel.substep_chain_cuda(*([None] * 21), substeps=8,
                                           dt=0.00125, kf_type=1)
 
 
 def test_randomize_params_draws_from_the_generator():
-    p = go1_params(torch.float64)
+    p = go1_params(torch.float64, CPU)
     a = runner.randomize_params(p, torch.Generator().manual_seed(7), 512)
     b = runner.randomize_params(p, torch.Generator().manual_seed(7), 512)
     for name, lo, hi in (("mass", 0.8, 1.2), ("mu", 0.5, 1.2),
@@ -138,15 +160,71 @@ def test_randomize_params_draws_from_the_generator():
     assert pb.rho_fix.shape == (512, 4, 5) and pb.mass.shape == (512,)
 
 
-@pytest.mark.parametrize("solver", ["pdip", "admm"])
-def test_unported_solvers_raise(solver):
-    loop, params = _small_loop(ticks=1)
-    pattern = gait.trot_pattern(torch.float32)
+def test_low_level_type_1_raises(small_loop):
+    """The WBC low level (low_level_type 1) is not ported."""
+    loop, params, _ = small_loop
+    pattern = gait.trot_pattern(torch.float32, CPU)
     with pytest.raises(NotImplementedError):
+        step.closed_loop_tick_batched(loop, params, pattern,
+                                      low_level_type=1)
+    with pytest.raises(NotImplementedError):
+        step.lowlevel_update(loop.controller, params, low_level_type=1)
+
+
+def test_unknown_solver_raises(small_loop):
+    loop, params, _ = small_loop
+    pattern = gait.trot_pattern(torch.float32, CPU)
+    with pytest.raises(ValueError, match="unknown solver"):
         convex_mpc.mpc_tick_batched(loop.controller, params, pattern, 0.01,
-                                    horizon=10, solver=solver)
-    with pytest.raises(NotImplementedError):
-        runner.make_batched_rollout(pattern, solver=solver)
+                                    horizon=10, solver="osqp")
+    with pytest.raises(ValueError, match="unknown solver"):
+        runner.make_batched_rollout(pattern, solver="osqp")
+
+
+# every entry point that builds state from nothing, called without a device
+ENTRY_POINTS = {
+    "a1_params": lambda: a1_params(),
+    "go1_params": lambda: go1_params(),
+    "trot_pattern": lambda: gait.trot_pattern(),
+    "init_loop_batch": lambda: runner.init_loop_batch(
+        go1_params(device=CPU), 2, torch.Generator()),
+    "controller_init": lambda: step.controller_init(go1_params(device=CPU),
+                                                    2),
+    "sim_init": lambda: srb_sim.sim_init(go1_params(device=CPU),
+                                         [0.28, 0.3]),
+    "admm_warm_init": lambda: step.admm_warm_init(2, 10),
+    "init_feedback": lambda: init_feedback(2),
+    "init_ctrl": lambda: init_ctrl(2),
+    "init_joy": lambda: init_joy(2),
+    "moving_window_init": lambda: filters.moving_window_init(3, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    """Without a device argument an entry point builds on the card; with no
+    card it raises and says how to ask for the CPU."""
+    if torch.cuda.is_available():
+        out = ENTRY_POINTS[name]()
+        leaf = out[0] if isinstance(out, tuple) else out
+        while not torch.is_tensor(leaf):
+            leaf = next(iter(vars(leaf).values()))
+        assert leaf.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ENTRY_POINTS[name]()
+
+
+def test_built_state_follows_the_requested_device():
+    """device="cpu" builds every leaf on the CPU, and functions handed
+    tensors follow them (the gait FSM state follows its pattern)."""
+    loop = runner.init_loop_batch(go1_params(device=CPU), 3,
+                                  torch.Generator(), device=CPU)
+    devices = set()
+    tree_map(lambda x: devices.add(x.device), loop)
+    assert devices == {CPU}
+    assert gait.gait_leg_init(gait.trot_pattern(device=CPU),
+                              3).phase.device == CPU
 
 
 def test_cuda_wrappers_refuse_f64_before_touching_a_device():
@@ -162,3 +240,7 @@ def test_cuda_wrappers_refuse_f64_before_touching_a_device():
     with pytest.raises(TypeError, match="float32"):
         substep_kernel.substep_chain_cuda(
             *([meta(B, 3)] * 21), substeps=8, dt=0.00125)
+    with pytest.raises(TypeError, match="float32"):
+        chol_kernel.cholesky_cuda(meta(B, 12, 12))
+    with pytest.raises(TypeError, match="float32"):
+        chol_kernel.cho_solve_cuda(meta(B, 12, 12), meta(B, 12))

@@ -1,11 +1,17 @@
 """Helpers of the PyTorch-port parity tests: carry JAX pytrees across as
-numpy, and compare torch results with JAX ones."""
+numpy, and compare torch results with JAX ones.
+
+Importing it pins PyTorch to one intra-op thread: the tests' tensors hold a
+handful of scenarios, where the thread pool costs far more than it saves
+(and the suite's xdist workers would each start one)."""
 
 import dataclasses
 
 import jax
 import numpy as np
 import torch
+
+torch.set_num_threads(1)
 
 
 def np_tree(tree):
@@ -22,6 +28,18 @@ def params_mapping(jparams):
     """Field name -> numpy array of a JAX RobotParams."""
     return {f.name: np.asarray(getattr(jparams, f.name))
             for f in dataclasses.fields(jparams)}
+
+
+def jax_tree_from(template, tree):
+    """A JAX pytree shaped like `template` (flax dataclasses) with its
+    leaves taken by field name from `tree`, nested dicts of arrays (the
+    port's `loop_state_to_numpy`): carries a state the port built into
+    the JAX package."""
+    if dataclasses.is_dataclass(template):
+        return template.replace(**{
+            f.name: jax_tree_from(getattr(template, f.name), tree[f.name])
+            for f in dataclasses.fields(template)})
+    return jax.numpy.asarray(tree)
 
 
 def close(got, want, atol, rtol=0.0, what=""):
