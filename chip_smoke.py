@@ -9,8 +9,12 @@ shapes, then drives the paths of the batched Go1 trot closed loop
 (`parallel/runner.make_batched_rollout`) through their quality gates and
 times them at B=4096: Riccati with kf_type 0 (kernels K1, K2) and 1 (K1,
 K3), and the condensed PDIP and ADMM solvers (K4, K5, K2); then the
-condensed solve rate and the B=1 solve latencies. Exits non-zero on any
-failure and when no CUDA device is present. Diagnostics go to the earlier
+condensed solve rate and the B=1 solve latencies. Then the contact-implicit
+MPC (`control/step.closed_loop_tick_lci_batched`, A1, B=256): the flat
+closed loop (K7, K2) with its 24-vs-48-sweep gate, K7 against its plain
+version, the B=1 CI policy latency (K7), and the box-step terrain loop (K4,
+K6) with K4 + K6 against the plain path. Exits non-zero on any failure and
+when no CUDA device is present. Diagnostics go to the earlier
 lines; the second-to-last line is a JSON object of the kernels, the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -37,6 +41,8 @@ REPO_K2 = "legged_mpc_control_tpu/ops/substep_pallas.py:777"
 REPO_K3 = "legged_mpc_control_tpu/ops/substep_pallas.py:777"
 REPO_K4 = "legged_mpc_control_tpu/ops/chol_pallas.py:247"
 REPO_K5 = "legged_mpc_control_tpu/ops/chol_pallas.py:271"
+REPO_K6 = "legged_mpc_control_tpu/ops/chol_pallas.py:211"
+REPO_K7 = "legged_mpc_control_tpu/ops/ci_pallas.py:641"
 CSRC = "legged_mpc_control_tpu_torch/csrc/"
 
 # the least time an H100 SXM could take (its datasheet peaks): bytes
@@ -73,6 +79,21 @@ K2_FLOP_TAIL = 1500
 # the correction and the 18x18 rank-1 update (~720 each), the
 # symmetrization (~300) and its sensor model (~460).
 K3_FLOP_PER_SUBSTEP = K2_FLOP_PER_SUBSTEP + 220 + 28 * 720 + 300 + 460
+# K7, per stage and sweep, counted from the function as the TPU kernel
+# computes it (legged_mpc_control_tpu/ops/ci_pallas.py:241-543), where
+# Fz = I + dt S and Fu = dt T are never formed: the three dense 24x24x24
+# products K'Quu, (K'Quu) K and K'Qux; the 24x24 Cholesky; the 25-column
+# triangular solve pair; the block-sparse S and T applications (Vxx S,
+# S'Y, Vxx T, T' twice: 12,096 over 3x3 blocks) and the 36 3x3 block
+# products of Fu'Fu and Fu'Fz and the 9 of the S and T blocks (2,430);
+# ~21 elementwise 24x24 updates of Qxx, Quu, Qux, their regularized forms
+# and Vxx; the Q and value vectors (~3,900) and the per-foot
+# quadratization (~700). Then six forward passes, each K (z - zn) (1,152),
+# the step (~150) and the stage cost (~600).
+K7_FLOP_PER_STAGE_SWEEP = (3 * 2 * 24 ** 3 + 24 ** 3 // 3
+                           + 2 * 24 ** 2 * 25 + 12_096 + 2_430
+                           + 21 * 24 ** 2 + 3_900 + 700
+                           + 6 * (2 * 24 ** 2 + 150 + 600))
 
 
 class GateError(RuntimeError):
@@ -195,7 +216,7 @@ def qp_problem(batch, horizon, dev):
 def phase_build():
     from legged_mpc_control_tpu_torch.ops import cuda_build
 
-    sources = ("riccati_ipm", "substep_chain", "chol_lanes")
+    sources = ("riccati_ipm", "substep_chain", "chol_lanes", "ci_sweeps")
     t0 = phase(f"build: nvcc sm_90a, {len(sources)} sources in parallel")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(cuda_build.build, sources))
@@ -593,6 +614,12 @@ PDIP_TAIL_SLACK = 8
 
 ROBUST_PIVOT = 1e-4
 
+
+def tri(n):
+    """Floats of one n x n triangle: what a Cholesky factor or solve must
+    read of a symmetric matrix or of its factor, and write of a factor."""
+    return n * (n + 1) // 2
+
 # label -> (batch, horizon, 0-based PDIP iteration of the Newton matrix)
 CHOL_CASES = {"early": (B, 10, 0), "late": (B, 10, 14), "n=360": (512, 30, 0)}
 # the kernels line's max_abs_err for K4/K5 is the elementwise difference
@@ -687,8 +714,8 @@ def phase_chol(dev, card):
                            reps=3),
             lib5=cuda_ms(lambda: torch.cholesky_solve(rhs[..., None],
                                                       Fp.tril()), reps=3),
-            bound4=bound(2 * batch * n * n * 4, batch * n ** 3 / 3),
-            bound5=bound(batch * (n * n + 2 * n) * 4, batch * 2 * n * n))
+            bound4=bound(batch * tri(n) * 2 * 4, batch * n ** 3 / 3),
+            bound5=bound(batch * (tri(n) + 2 * n) * 4, batch * 2 * n * n))
         print(f"   time ({card}): K4 kernel {entry['ms4']:.3f} ms, plain "
               f"{entry['plain4']:.3f} ms, torch.linalg.cholesky_ex "
               f"{entry['lib4']:.3f} ms, bound {entry['bound4'][0]:.4f} ms "
@@ -1006,6 +1033,397 @@ def phase_latency(dev, card):
     return lat
 
 
+# ---- the contact-implicit MPC (A1, B=256, H=10) --------------------------
+
+CI_B = 256
+CI_VELX = 0.1
+# tests/test_ci_fused.py:49-56, the TPU kernel's bracket against XLA: cost
+# rtol 2e-3, Z atol 2e-3 m, forces atol 0.5 N, foot velocities 2e-2 m/s.
+# Gate: at least 99 % of the scenarios agree with the plain float32
+# version within all four, and the kernel is no farther from the float64
+# plain solve than the plain float32 version is (x1.5 + the tolerance, at
+# the 99th percentile of the per-scenario errors).
+K7_TOL = {"cost": 2e-3, "Z": 2e-3, "forces": 0.5, "foot_vel": 2e-2}
+K7_SHARE = 0.99
+# Where the float64 pivots are robust: K6's agreement with its plain
+# version on the same factor, and that of the terrain path's K4 + K6 with
+# the plain path, relative to the matrix's largest entry; and the backward
+# errors max|L L' - A| / max|A| and max|A X - R| / (||A||_inf max|X|),
+# which float32 keeps within a few n eps (n eps = 2.9e-6 at n=24)
+K6_REL_TOL = 1e-3
+BACKWARD_TOL = 1e-5
+# the gain solve K6 is held on: sweep 21 of 48, the 4th stage solved (k=6)
+K6_PICK = 10 * 20 + 3
+BOX = dict(center_xy=(1.3, 0.0), size_xy=(2.2, 2.0), height=0.03)
+# the box-step gate over the 50 walking ticks: mean forward progress (the
+# command is 0.12 m/s from rest), and the share of scenarios that have
+# stepped a foot onto the box
+TERRAIN_PROGRESS_MIN = 0.02
+TERRAIN_ON_BOX_SHARE = 0.9
+
+
+def ci_setup(dev, batch, iters, velx=CI_VELX, terrain=None, seed=0,
+             mode=1):
+    """An A1 batch standing at the origin (`runner.init_loop_batch`; on a
+    height field its feet stand on the surface, `srb_sim.sim_init`), the
+    batched CI walk policy, the stand policy and the LCI state."""
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc, lci_mpc
+    from legged_mpc_control_tpu_torch.parallel import runner
+    from legged_mpc_control_tpu_torch.sim import srb_sim
+
+    f32 = torch.float32
+    params = a1_params(f32, dev)
+    walk = ci_mpc.make_ci_walk_policy_batched(params, terrain=terrain,
+                                              velx=velx, iters=iters)
+    stand = lci_mpc.make_stand_policy(params, body_height=0.3)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    loop = runner.init_loop_batch(params, batch, gen, dtype=f32, device=dev)
+    if terrain is not None:
+        loop = loop.replace(sim=srb_sim.sim_init(
+            params, loop.sim.pos[:, 2], f32, dev, terrain=terrain))
+    loop = set_mode(loop, mode)
+    lci = lci_mpc.lci_init_batched(batch, f32, walk.warm_init(batch, f32,
+                                                              dev),
+                                   device=dev)
+    return dict(params=params, walk=walk, stand=stand, loop=loop, lci=lci,
+                terrain=terrain)
+
+
+def set_mode(loop, mode):
+    cs = loop.controller
+    B = loop.sim.pos.shape[0]
+    return loop.replace(controller=cs.replace(ctrl=cs.ctrl.replace(
+        movement_mode=torch.full((B,), mode, dtype=torch.int32,
+                                 device=loop.sim.pos.device))))
+
+
+def ci_roll(st, n, t0=0.0):
+    """n closed-loop CI ticks of the state dict `st`, in place."""
+    from legged_mpc_control_tpu_torch.control import step
+
+    loop, lci = st["loop"], st["lci"]
+    for k in range(n):
+        loop, lci = step.closed_loop_tick_lci_batched(
+            loop, lci, st["params"], st["stand"], st["walk"],
+            t0 + 0.01 * k, terrain=st["terrain"])
+    st["loop"], st["lci"] = loop, lci
+    return st
+
+
+def phase_ci_loop(dev, card):
+    """The flat CI closed loop of bench.py:412-512 on the port: the
+    24-vs-48-sweep gate at B=32 x 60 ticks, then B=256 walked in for 20
+    ticks and timed over 10 (24 warm sweeps a tick)."""
+    t0 = phase("CI closed loop gate: A1, B=32, 60 ticks, 24 vs 48 sweeps")
+    runs = {it: ci_roll(ci_setup(dev, 32, it, seed=7), 60)["loop"].sim.pos
+            for it in (24, 48)}
+    p24, p48 = runs[24], runs[48]
+    check(bool(torch.isfinite(p24).all()), "CI gate run: non-finite")
+    dh = abs(float(p24[:, 2].mean() - p48[:, 2].mean()))
+    dx = abs(float(p24[:, 0].mean() - p48[:, 0].mean()))
+    print(f"   24 vs 48 sweeps: mean height {dh:.3e} m, mean progress "
+          f"{dx:.3e} m; z in [{float(p24[:, 2].min()):.4f}, "
+          f"{float(p24[:, 2].max()):.4f}], mean x {float(p24[:, 0].mean()):.4f}"
+          " m", flush=True)
+    check(dh < 0.01, f"24 sweeps diverge from 48 in mean height: {dh}")
+    check(dx < 0.02, f"24 sweeps diverge from 48 in mean progress: {dx}")
+    check(float(p24[:, 2].min()) > 0.15, "CI gate run fell")
+    done(t0)
+
+    t0 = phase(f"CI closed loop timed: A1, B={CI_B}, 20 walk-in + 10 timed "
+               "ticks, 24 warm sweeps")
+    st = ci_roll(ci_setup(dev, CI_B, 24), 20)
+    torch.cuda.synchronize()
+    with launch_counts() as launches:
+        t1 = time.perf_counter()
+        ci_roll(st, 10, t0=0.2)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t1
+    check_launched(launches, ("ci_sweeps", "substep_chain"), "CI flat")
+    check(launches.get("chol_factor", 0) == 0
+          and launches.get("chol_solve_multi", 0) == 0,
+          "the flat CI path launched the terrain path's kernels")
+    pos = st["loop"].sim.pos
+    check(bool(torch.isfinite(pos).all()), "CI loop: non-finite")
+    check(float(pos[:, 2].min()) > 0.15, "CI scenarios fell")
+    rate = CI_B * 10 / elapsed
+    print(f"   ci_closed_loop_scenario_ticks_per_s_b256 = {rate:.1f} "
+          f"({card}; real-time bar {CI_B * 100}); {elapsed / 10 * 1e3:.2f} "
+          "ms a tick", flush=True)
+    done(t0)
+    return launches, rate, st
+
+
+def per_scenario(x, y):
+    return (x.double() - y.double()).abs().reshape(x.shape[0], -1).amax(-1)
+
+
+def k7_errors(a, b):
+    """Per-scenario errors of one K7 result (Uh, Z, cost) against another,
+    keyed as K7_TOL."""
+    (Ua, Za, ca), (Ub, Zb, cb) = a, b
+    return {"cost": ((ca.double() - cb.double()).abs()
+                     / cb.double().abs()),
+            "Z": per_scenario(Za, Zb),
+            "forces": 50.0 * per_scenario(Ua[..., :12], Ub[..., :12]),
+            "foot_vel": per_scenario(Ua[..., 12:], Ub[..., 12:])}
+
+
+def phase_k7(dev, card, st):
+    """Kernel K7 vs its plain version (float32, and float64 as the
+    reference) on the solve of one tick of the walked-in flat loop, B=256,
+    H=10, 24 sweeps; then its time at B=1 with 32 sweeps."""
+    from legged_mpc_control_tpu_torch.ops import ci_kernel
+
+    t0 = phase(f"K7 ci_sweeps vs plain, B={CI_B}, H=10, 24 sweeps, from the "
+               "walked-in flat loop")
+    seen = {}
+    kernel = ci_kernel.ci_sweeps_cuda
+
+    def capture(*a, **kw):
+        seen["args"] = (a, kw)
+        return kernel(*a, **kw)
+    with patched(ci_kernel, ci_sweeps_cuda=capture):
+        ci_roll(dict(st), 1, t0=0.3)
+    a, kw = seen["args"]
+    got = ci_kernel.ci_sweeps_cuda(*a, **kw)
+    plain = ci_kernel.ci_sweeps_plain(*a, **kw)
+    a64 = tuple(x.double() if torch.is_tensor(x) else x for x in a)
+    ref64 = ci_kernel.ci_sweeps_plain(*a64, **kw)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(x).all()) for x in got),
+          "K7: non-finite result")
+    e = k7_errors(got, plain)
+    e64, p64 = k7_errors(got, ref64), k7_errors(plain, ref64)
+    outside = torch.zeros(CI_B, dtype=torch.bool, device=dev)
+    for name, tol in K7_TOL.items():
+        outside |= e[name] > tol
+        k99 = float(torch.quantile(e64[name], 0.99))
+        q99 = float(torch.quantile(p64[name], 0.99))
+        print(f"   {name}: kernel vs plain max {float(e[name].max()):.3e}, "
+              f"p99 {float(torch.quantile(e[name], 0.99)):.3e} (tol {tol});"
+              f" vs float64 p99: kernel {k99:.3e}, plain {q99:.3e}",
+              flush=True)
+        check(k99 <= 1.5 * q99 + tol,
+              f"K7 {name}: p99 {k99} from float64, plain {q99}")
+    n_out = int(outside.sum())
+    print(f"   scenarios outside the bracket: {n_out} of {CI_B}", flush=True)
+    check(n_out <= (1.0 - K7_SHARE) * CI_B,
+          f"K7: {n_out} of {CI_B} scenarios outside the bracket")
+    err = float(e["Z"].max())
+    ms = cuda_ms(lambda: ci_kernel.ci_sweeps_cuda(*a, **kw), reps=5)
+    plain_ms = cuda_ms(lambda: ci_kernel.ci_sweeps_plain(*a, **kw), reps=1)
+    H, iters = a[1].shape[1], kw["iters"]
+    floats = (24 + 24 * H + 48 * H + 24 + 4 * H + 1 + 9 + 24 * H
+              + 24 * (H + 1) + 1)
+    b_ms, b_by = bound(CI_B * floats * 4 + 54 * 4,
+                       CI_B * iters * H * K7_FLOP_PER_STAGE_SWEEP)
+    one = tuple(x[:1] if torch.is_tensor(x) and x.dim() and x.shape[0] ==
+                CI_B else x for x in a)
+    kw1 = dict(kw, iters=32)
+    ms1 = cuda_ms(lambda: ci_kernel.ci_sweeps_cuda(*one, **kw1), reps=5)
+    print(f"   time ({card}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"per 24-sweep solve; bound {b_ms:.4f} ms ({b_by}); kernel at "
+          f"B=1, 32 sweeps {ms1:.3f} ms", flush=True)
+    done(t0)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_ci_latency(dev, card):
+    """B=1 latency of the CI walk policy (`make_ci_walk_policy`, A1, H=10,
+    32 sweeps, warm slot carried): host clock over 20 calls cycling over 8
+    perturbed states (bench.py:374-409), against the 10 ms MPC budget."""
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc
+
+    t0 = phase("CI policy latency: A1, B=1, H=10, 32 sweeps, warm")
+    f32 = torch.float32
+    params = a1_params(f32, dev)
+    policy = ci_mpc.make_ci_walk_policy(params, velx=CI_VELX, horizon=10,
+                                        iters=32)
+    x = torch.zeros(40, dtype=f32, device=dev)
+    x[2] = 0.3
+    x[6:18] = params.default_foot_pos.reshape(-1)
+    x[18] = CI_VELX
+    x[36:40] = 30.0
+    out0, warm = policy(x, 0.0, policy.warm_init(f32, dev))
+    check(bool(torch.isfinite(out0).all()), "CI policy: non-finite output")
+    variants = [(x + 1e-4 * k, 0.01 * k, warm) for k in range(8)]
+    with launch_counts() as launches:
+        ms = host_ms(lambda xx, tt, w: policy(xx, tt, w)[0], variants,
+                     reps=20)
+    check_launched(launches, ("ci_sweeps",), "CI B=1 policy")
+    print(f"   ci_tick_latency_ms_b1 = {ms:.3f} ({card}; MPC-thread budget "
+          "10 ms)", flush=True)
+    done(t0)
+    return ms
+
+
+def phase_ci_terrain(dev, card):
+    """The box-step terrain of tests/test_ci_mpc.py:187-189 (3 cm box at
+    x 0.2-2.4 m), A1, B=256, 48 sweeps, velx 0.12: 20 standing and 40
+    walking ticks untimed, then 10 timed; every backward stage solves its
+    gains on K4 + K6. The batch starts at the origin with its feet on the
+    surface, the front feet 3 cm short of the box's top (on the edge's
+    bilinear ramp). Gated on finite, upright, forward progress and the
+    front feet stepping onto the box."""
+    from legged_mpc_control_tpu_torch.sim import terrain as terrain_mod
+
+    t0 = phase(f"CI box-step terrain: A1, B={CI_B}, 48 sweeps, 20 standing "
+               "+ 40 walking + 10 timed ticks")
+    box = terrain_mod.add_box(terrain_mod.flat(extent=3.0, cell=0.05,
+                                               dtype=torch.float32,
+                                               device=dev), **BOX)
+    st = ci_roll(ci_setup(dev, CI_B, 48, velx=0.12, terrain=box, mode=0),
+                 20)
+    x_stand = st["loop"].sim.pos[:, 0].clone()
+    st["loop"] = set_mode(st["loop"], 1)
+    ci_roll(st, 40, t0=0.2)
+    torch.cuda.synchronize()
+    with launch_counts() as launches:
+        t1 = time.perf_counter()
+        ci_roll(st, 10, t0=0.6)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t1
+    check_launched(launches, ("chol_factor", "chol_solve_multi"),
+                   "CI terrain")
+    check(launches.get("ci_sweeps", 0) == 0,
+          "the terrain path launched the flat-only kernel K7")
+    sim = st["loop"].sim
+    pos = sim.pos
+    check(bool(torch.isfinite(pos).all()), "CI terrain: non-finite")
+    dx = pos[:, 0] - x_stand
+    z = pos[:, 2]
+    # a foot on the box: anchored in contact where the sim's touchdown put
+    # it on the box's top (a sim blind to the height field anchors at 0)
+    top = 0.9 * BOX["height"]
+    on_box = (sim.contact & (sim.anchor[..., 2] >= top)
+              & (terrain_mod.height_at(box, sim.anchor[..., :2]) >= top))
+    share = float(on_box.any(-1).float().mean())
+    print(f"   z in [{float(z.min()):.4f}, {float(z.max()):.4f}]; x progress "
+          f"over 50 walking ticks: mean {float(dx.mean()):.4f} m, min "
+          f"{float(dx.min()):.4f} m; share of scenarios with a foot on the "
+          f"box {share:.3f}; launches a tick: K4 "
+          f"{launches.get('chol_factor', 0) / 10:.0f}, K6 "
+          f"{launches.get('chol_solve_multi', 0) / 10:.0f}", flush=True)
+    check(float(z.min()) > 0.15, "CI terrain: scenarios fell")
+    check(float(dx.mean()) > TERRAIN_PROGRESS_MIN,
+          f"CI terrain: mean progress {float(dx.mean())} m")
+    check(float(dx.min()) > 0.0, "CI terrain: a scenario backed off")
+    check(share >= TERRAIN_ON_BOX_SHARE,
+          f"CI terrain: {share} of the scenarios have a foot on the box")
+    rate = CI_B * 10 / elapsed
+    print(f"   ci_closed_loop_terrain_b256 = {rate:.1f} ({card}; diagnostic, "
+          f"real-time bar {CI_B * 100}); {elapsed / 10 * 1e3:.1f} ms a tick",
+          flush=True)
+    done(t0)
+    return launches, rate, st
+
+
+def phase_k6(dev, card, st):
+    """Kernels K4 and K6 on the gain solve of one backward stage of the
+    walked-in box-step solve at B=256, Quu_r and [Qu | Qux_r] as the terrain
+    path hands them over: K6 against its plain version on K4's factor, and
+    the path's K4 + K6 against the plain path (`cholesky_plain`, then
+    `cho_solve_multi_plain`)."""
+    from legged_mpc_control_tpu_torch.ops import chol_kernel
+
+    t0 = phase(f"K6 chol_solve_multi vs plain, B={CI_B}, n=24, m=25, a "
+               "box-step backward stage")
+    seen = {"n": 0}
+    factor, solve = chol_kernel.cholesky_cuda, chol_kernel.cho_solve_multi_cuda
+    pick = K6_PICK
+
+    def cap_factor(A):
+        if seen["n"] == pick:
+            seen["A"] = A.clone()
+        return factor(A)
+
+    def cap_solve(F, R):
+        if seen["n"] == pick:
+            seen["R"] = R.clone()
+        seen["n"] += 1
+        return solve(F, R)
+    with patched(chol_kernel, cholesky_cuda=cap_factor,
+                 cho_solve_multi_cuda=cap_solve):
+        ci_roll(dict(st), 1, t0=0.7)
+    A, R = seen["A"], seen["R"]
+    n, m = R.shape[1], R.shape[2]
+    F = chol_kernel.cholesky_cuda(A)                # K4, as the path runs it
+    Fp = chol_kernel.cholesky_plain(A)
+    X = chol_kernel.cho_solve_multi_cuda(F, R)      # the path: K4 + K6
+    X6p = chol_kernel.cho_solve_multi_plain(F, R)   # K6's plain version
+    Xp = chol_kernel.cho_solve_multi_plain(Fp, R)   # the plain path
+    torch.cuda.synchronize()
+    L64, info = torch.linalg.cholesky_ex(A.double())
+    pivot = torch.where(
+        info == 0, (L64.diagonal(dim1=-2, dim2=-1) ** 2
+                    / A.double().diagonal(dim1=-2, dim2=-1)).amin(-1),
+        torch.zeros_like(L64[:, 0, 0]))
+    robust = pivot >= ROBUST_PIVOT
+    n_rob = int(robust.sum())
+    check(n_rob > 0.9 * CI_B, f"K6: only {n_rob} robust matrices")
+    check(bool(torch.isfinite(F[robust]).all()),
+          "K4 at n=24: a robust matrix not factored")
+    check(bool(torch.isfinite(X[robust]).all()), "K4 + K6: non-finite")
+    Ad = A.double()
+
+    def factor_backward(F):
+        L = F.double().tril()
+        r = (L @ L.mT - Ad).abs().amax((-1, -2))
+        return float((r / Ad.abs().amax((-1, -2)))[robust].max())
+
+    def solve_backward(x):
+        r = (Ad @ x.double() - R.double()).abs().amax((-1, -2))
+        scale = (Ad.abs().sum(-1).amax(-1)
+                 * x.double().abs().amax((-1, -2)))
+        return float((r / scale)[robust].max())
+
+    def rel(x, y):
+        return float(((x - y).abs().amax((-1, -2))
+                      / y.abs().amax((-1, -2)))[robust].max())
+    rf, rfp = factor_backward(F), factor_backward(Fp)
+    rk, rp = solve_backward(X), solve_backward(Xp)
+    rel6, rel_path, rel4 = rel(X, X6p), rel(X, Xp), rel(F.tril(), Fp.tril())
+    err = float((X - X6p)[robust].abs().max())
+    err4 = float((F - Fp).tril()[robust].abs().max())
+    print(f"   {n_rob} of {CI_B} matrices with robust pivots. K4: backward "
+          f"error {rf:.3e} (plain {rfp:.3e}), max |F - F_plain| {err4:.3e},"
+          f" relative {rel4:.3e}. K6 on K4's factor: max |X - X_plain| "
+          f"{err:.3e}, relative {rel6:.3e}. K4 + K6 against the plain path:"
+          f" backward error {rk:.3e} (plain {rp:.3e}), relative "
+          f"{rel_path:.3e} (tol {K6_REL_TOL}; backward tol {BACKWARD_TOL})",
+          flush=True)
+    check(rf <= BACKWARD_TOL and rf <= 4 * rfp + 1e-6,
+          f"K4 at n=24: backward error {rf} vs {rfp}")
+    check(rk <= BACKWARD_TOL and rk <= 4 * rp + 1e-6,
+          f"K4 + K6: backward error {rk} vs {rp}")
+    check(rel6 <= K6_REL_TOL, f"K6: differs by {rel6}")
+    check(rel_path <= K6_REL_TOL,
+          f"K4 + K6: differ from the plain path by {rel_path}")
+    Lp = F.tril()
+    ms = cuda_ms(lambda: chol_kernel.cho_solve_multi_cuda(F, R), reps=20)
+    plain_ms = cuda_ms(lambda: chol_kernel.cho_solve_multi_plain(F, R),
+                       reps=5)
+    lib_ms = cuda_ms(lambda: torch.cholesky_solve(R, Lp), reps=5)
+    b_ms, b_by = bound(CI_B * (tri(n) + 2 * n * m) * 4, CI_B * 2 * n * n * m)
+    # K4 at this path's shape (its row in the kernels line is the PDIP one)
+    ms4 = cuda_ms(lambda: chol_kernel.cholesky_cuda(A), reps=20)
+    plain4 = cuda_ms(lambda: chol_kernel.cholesky_plain(A), reps=5)
+    lib4 = cuda_ms(lambda: torch.linalg.cholesky_ex(A), reps=5)
+    b4 = bound(CI_B * tri(n) * 2 * 4, CI_B * n ** 3 / 3)
+    print(f"   time ({card}): K6 kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, torch.cholesky_solve {lib_ms:.4f} ms; bound {b_ms:.5f} ms "
+          f"({b_by}); K4 at n={n}: kernel {ms4:.4f} ms (max |F - F_plain| "
+          f"{err4:.3e}), plain {plain4:.4f} ms, torch.linalg.cholesky_ex "
+          f"{lib4:.4f} ms, bound {b4[0]:.5f} ms ({b4[1]})", flush=True)
+    done(t0)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device available")
@@ -1022,6 +1440,11 @@ def main():
     loops = phase_condensed(dev, card, walked)
     phase_condensed_rate(dev, card)
     phase_latency(dev, card)
+    ci_launches, ci_rate, ci_state = phase_ci_loop(dev, card)
+    k7 = phase_k7(dev, card, ci_state)
+    phase_ci_latency(dev, card)
+    terrain_launches, _, terrain_state = phase_ci_terrain(dev, card)
+    k6 = phase_k6(dev, card, terrain_state)
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
     # the main path's shape, B=4096 and n=120, on the early matrices: the
@@ -1054,7 +1477,13 @@ def main():
         row("chol_solve", "chol_lanes.cu", REPO_K5,
             pdip_launches["chol_solve"],
             max(chol[c]["err5"] for c in WELL_CONDITIONED), timed["ms5"],
-            timed["plain5"], timed["bound5"], timed["lib5"])]}
+            timed["plain5"], timed["bound5"], timed["lib5"]),
+        row("chol_solve_multi", "chol_lanes.cu", REPO_K6,
+            terrain_launches["chol_solve_multi"], k6["err"], k6["ms"],
+            k6["plain_ms"], (k6["bound_ms"], k6["bound_by"]), k6["lib_ms"]),
+        row("ci_sweeps", "ci_sweeps.cu", REPO_K7, ci_launches["ci_sweeps"],
+            k7["err"], k7["ms"], k7["plain_ms"],
+            (k7["bound_ms"], k7["bound_by"]), None)]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,14 @@ hand-written CUDA kernels: the Riccati interior-point MPC solve
 (`ops/riccati_kernel.py`, `csrc/riccati_ipm.cu`), the fused low-level/sim
 substep chain with and without the in-chain KF (`ops/substep_kernel.py`,
 `csrc/substep_chain.cu`) and the batched Cholesky factor and solve of the
-condensed solvers (`ops/chol_kernel.py`, `csrc/chol_lanes.cu`). CUDA
-tensors run the kernels, CPU tensors their plain PyTorch versions. Entry
-points that build state from nothing default to the card; pass
+condensed solvers (`ops/chol_kernel.py`, `csrc/chol_lanes.cu`). The
+contact-implicit MPC (`mpc/ci_mpc.py` behind the LCI seam `mpc/lci_mpc.py`,
+`control/step.closed_loop_tick_lci_batched`) runs all its sweeps in one
+kernel on flat ground (`ops/ci_kernel.py`, `csrc/ci_sweeps.cu`) and its
+gain solves on the Cholesky kernels on a height field (`sim/terrain.py`).
+CUDA tensors run the kernels, CPU tensors their plain PyTorch versions.
+Entry points that build state from nothing default to the card; pass
 `device="cpu"` to build on the CPU.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

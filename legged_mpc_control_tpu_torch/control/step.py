@@ -12,7 +12,10 @@ solvers over kernels K4/K5 (`mpc/convex_mpc.py`); the fused substep chain is
 kernel K2 (kf_type 0) or K3 (kf_type 1, the 18-state KF in every substep),
 `ops/substep_kernel.py`. CPU tensors run the plain versions. Ported:
 kf_type 0 (ground-truth feedback) and 1 (the linear KF), low_level_type 0
-(J^T tau control), flat ground.
+(J^T tau control), flat ground for the convex MPC tick; the
+contact-implicit MPC tick (`closed_loop_tick_lci_batched`, the CI engine of
+`mpc/ci_mpc.py` behind the LCI seam of `mpc/lci_mpc.py`) also on a height
+field.
 """
 
 from dataclasses import dataclass
@@ -34,6 +37,7 @@ from legged_mpc_control_tpu_torch.control import (
 from legged_mpc_control_tpu_torch.estimation import basic_kf
 from legged_mpc_control_tpu_torch.models import kinematics as kin
 from legged_mpc_control_tpu_torch.mpc import convex_mpc, gait as gait_mod
+from legged_mpc_control_tpu_torch.mpc import lci_mpc
 from legged_mpc_control_tpu_torch.ops import filters, la3, so3
 from legged_mpc_control_tpu_torch.ops import substep_kernel
 from legged_mpc_control_tpu_torch.sim import srb_sim
@@ -138,7 +142,7 @@ def _estimate(fbk, kf: KfState, movement_mode, dt):
 
 
 def _feedback(fbk, ctrl, kf, sensors_raw, params: RobotParams, dt,
-              kf_type):
+              kf_type, terrain=None):
     """Feedback-thread body on (fbk, ctrl, kf): sensors, estimation and the
     Raibert footholds (reference: BaseInterface::fbk_update,
     BaseInterface.cpp:212-449). Returns (fbk, ctrl, kf)."""
@@ -147,18 +151,19 @@ def _feedback(fbk, ctrl, kf, sensors_raw, params: RobotParams, dt,
         fbk, kf = _estimate(fbk, kf, ctrl.movement_mode, dt)
     target_abs, target_world = raibert.raibert_footholds(
         fbk.root_pos, fbk.root_lin_vel, fbk.root_rot_mat_z,
-        ctrl.root_lin_vel_d_rel, params)
+        ctrl.root_lin_vel_d_rel, params, terrain=terrain)
     return fbk, ctrl.replace(foot_pos_target_abs=target_abs,
                              foot_pos_target_world=target_world), kf
 
 
 def feedback_update(cs: ControllerState, sensors_raw, params: RobotParams,
-                    dt, kf_type: int = 0) -> ControllerState:
+                    dt, kf_type: int = 0, terrain=None) -> ControllerState:
     """Feedback-thread body: raw sensors -> Feedback + Raibert targets, with
-    kf_type 0 (ground truth) or 1 (the 18-state linear KF)."""
+    kf_type 0 (ground truth) or 1 (the 18-state linear KF); with a
+    `terrain` height field the footholds snap to it."""
     _check_kf_type(kf_type)
     fbk, ctrl, kf = _feedback(cs.fbk, cs.ctrl, cs.kf, sensors_raw, params,
-                              dt, kf_type)
+                              dt, kf_type, terrain)
     return cs.replace(fbk=fbk, ctrl=ctrl, kf=kf,
                       estimation_inited=torch.ones_like(cs.estimation_inited))
 
@@ -293,6 +298,26 @@ def seed_batched_feedback(loop: LoopState, params: RobotParams, *,
     return loop.replace(controller=cs)
 
 
+def _substep_chain(cs: ControllerState, sim: srb_sim.SimState,
+                   params: RobotParams, substeps, dt, kf_type):
+    """All substeps of a tick as one substep chain (kernel K2, or K3 under
+    kf_type 1, on CUDA; the plain version on CPU) under the controller's
+    optimized state and input; params batched. Returns (out, sim')."""
+    out = substep_kernel.substep_chain_cuda(
+        sim.pos, sim.quat, sim.vel, sim.omega, sim.q, sim.dq, sim.contact,
+        sim.anchor, cs.ctrl.optimized_state, cs.ctrl.optimized_input,
+        cs.ctrl.movement_mode, params.mass, params.mu, params.kp_foot,
+        params.kd_foot, params.trunk_inertia, params.rho_fix,
+        params.default_foot_pos, params.gait_counter_speed,
+        sensors.contact_threshold(params), cs.ctrl.root_lin_vel_d_rel,
+        substeps=substeps, dt=dt, kf_type=kf_type, kf_x=cs.kf.x,
+        kf_P=cs.kf.P)
+    return out, srb_sim.SimState(
+        pos=out["pos"], quat=out["quat"], vel=out["vel"], omega=out["omega"],
+        q=out["q"], dq=out["dq"], contact=out["contact"],
+        anchor=out["anchor"], last_acc=out["last_acc"])
+
+
 def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
                              pattern: gait_mod.GaitPattern, *,
                              horizon: int = 10,
@@ -335,21 +360,8 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
         solver=solver, warm=warm)
 
     if fused_substeps:
-        sim = loop.sim
-        out = substep_kernel.substep_chain_cuda(
-            sim.pos, sim.quat, sim.vel, sim.omega, sim.q, sim.dq,
-            sim.contact, sim.anchor, cs.ctrl.optimized_state,
-            cs.ctrl.optimized_input, cs.ctrl.movement_mode, params.mass,
-            params.mu, params.kp_foot, params.kd_foot, params.trunk_inertia,
-            params.rho_fix, params.default_foot_pos,
-            params.gait_counter_speed, sensors.contact_threshold(params),
-            cs.ctrl.root_lin_vel_d_rel, substeps=substeps, dt=dt_ll,
-            kf_type=kf_type, kf_x=cs.kf.x, kf_P=cs.kf.P)
-        sim = srb_sim.SimState(
-            pos=out["pos"], quat=out["quat"], vel=out["vel"],
-            omega=out["omega"], q=out["q"], dq=out["dq"],
-            contact=out["contact"], anchor=out["anchor"],
-            last_acc=out["last_acc"])
+        out, sim = _substep_chain(cs, loop.sim, params, substeps, dt_ll,
+                                  kf_type)
         if kf_type == 1:
             # the chain's filter advanced every substep; carry it on
             cs = cs.replace(kf=cs.kf.replace(x=out["kf_x"], P=out["kf_P"]))
@@ -369,3 +381,45 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
         cs = feedback_update(cs, _sim_sensors(sim, params, grf_n), params,
                              dt_ll, kf_type=kf_type)
     return LoopState(controller=cs, sim=sim), warm
+
+
+def closed_loop_tick_lci_batched(loop: LoopState, lci_state, params:
+                                 RobotParams, stand_policy, walk_policy, t,
+                                 *, substeps: int = C.SUBSTEPS_PER_MPC_TICK,
+                                 terrain=None):
+    """One scenario-batched closed-loop tick through the LCI-MPC backend
+    (ground-truth state, kf_type 0, and the joint PD low level):
+    feedback, the seam (`lci_mpc.lci_mpc_tick_batched`, whose batched CI
+    walk policy runs one `ci_solve_batched`), then the substeps. `params`
+    are shared by the batch (unbatched leaves); `terrain` a
+    `sim.terrain.Terrain` height field or None for flat ground.
+
+    On flat ground the substeps run as one substep chain (kernel K2 on
+    CUDA, the plain version on CPU); on a height field as the per-substep
+    loop with the terrain in the sim step and the footholds. Returns
+    (loop', lci_state')."""
+    dt_mpc = C.MPC_DT
+    dt_ll = dt_mpc / substeps
+    pb = broadcast_params(params, loop.sim.pos.shape[0])
+    cs = loop.controller
+    grf_n = _anchored_normal_force(cs.ctrl.joint_tau_tgt, loop.sim, pb)
+    cs = feedback_update(cs, _sim_sensors(loop.sim, pb, grf_n), pb, dt_ll,
+                         terrain=terrain)
+    cs, lci_state = lci_mpc.lci_mpc_tick_batched(
+        cs, lci_state, stand_policy, walk_policy, t, dt_mpc)
+
+    if terrain is None:
+        out, sim = _substep_chain(cs, loop.sim, pb, substeps, dt_ll, 0)
+        cs = cs.replace(ctrl=cs.ctrl.replace(
+            joint_ang_tgt=out["q_tgt"], joint_vel_tgt=out["dq_tgt"],
+            joint_tau_tgt=out["tau_ff"]))
+        return LoopState(controller=cs, sim=sim), lci_state
+
+    sim = loop.sim
+    for _ in range(substeps):
+        cs, tau, _safe = lowlevel_update(cs, pb)
+        sim = srb_sim.sim_step(sim, tau, pb, dt_ll, terrain=terrain)
+        grf_n = _anchored_normal_force(cs.ctrl.joint_tau_tgt, sim, pb)
+        cs = feedback_update(cs, _sim_sensors(sim, pb, grf_n), pb, dt_ll,
+                             terrain=terrain)
+    return LoopState(controller=cs, sim=sim), lci_state

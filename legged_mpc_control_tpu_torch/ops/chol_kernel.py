@@ -1,10 +1,12 @@
-"""Kernels K4 and K5 wrapper: batched Cholesky factor and solve
+"""Kernels K4, K5 and K6 wrapper: batched Cholesky factor and solves
 (csrc/chol_lanes.cu), the port of the TPU kernels
-`legged_mpc_control_tpu/ops/chol_pallas.py:cholesky_lanes` (K4) and
-`cho_solve_lanes` (K5).
+`legged_mpc_control_tpu/ops/chol_pallas.py:cholesky_lanes` (K4),
+`cho_solve_lanes` (K5, one right-hand side) and `cho_solve_lanes_multi`
+(K6, m right-hand sides).
 
-The TPU kernels take the batch innermost, (n, n, B) and (n, B); the port
-keeps its batch-first convention: K (B, n, n) SPD, b (B, n), any n.
+The TPU kernels take the batch innermost, (n, n, B), (n, B) and (n, m, B);
+the port keeps its batch-first convention: K (B, n, n) SPD, b (B, n),
+R (B, n, m), any n.
 
 The factor F that `cholesky_cuda` returns holds L in its lower triangle,
 diagonal included, and L^T in its strict upper triangle (F = L + L^T -
@@ -13,9 +15,10 @@ contiguous in memory. Only the lower triangle of K is read. A
 non-positive pivot gives a non-finite factor, as the TPU kernel's rsqrt
 does (no clamp), which the PDIP solver's non-finite guard freezes.
 
-`cholesky_cuda` / `cho_solve_cuda` launch the kernels on CUDA tensors
-(float32) and run the plain versions `cholesky_plain` / `cho_solve_plain`
-(what the JAX package's "xla" backend computes) on CPU tensors.
+`cholesky_cuda` / `cho_solve_cuda` / `cho_solve_multi_cuda` launch the
+kernels on CUDA tensors (float32) and run the plain versions
+`cholesky_plain` / `cho_solve_plain` / `cho_solve_multi_plain` (what the
+JAX package's "xla" backend computes) on CPU tensors.
 """
 
 import ctypes
@@ -45,6 +48,18 @@ def cho_solve_plain(F, b):
                                          upper=True)[..., 0]
 
 
+def cho_solve_multi_plain(F, R):
+    """Plain version of K6: L L^T X = R by two triangular solves, L the
+    lower triangle of F (B, n, n); R (B, n, m)."""
+    L = F.tril()
+    Y = torch.linalg.solve_triangular(L, R, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), Y, upper=True)
+
+
+# K6 keeps F and X in shared memory: n (n + m) floats per block
+SOLVE_MULTI_SMEM_MAX = 232448
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = cuda_build.load("chol_lanes")
@@ -56,6 +71,10 @@ def _lib():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
     lib.chol_solve_launch.restype = ctypes.c_int
+    lib.chol_solve_multi_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.chol_solve_multi_launch.restype = ctypes.c_int
     return lib
 
 
@@ -108,3 +127,28 @@ def cho_solve_cuda(F, b):
     cuda_build.LAUNCHES["chol_solve"] += 1
     return x
 
+
+
+def cho_solve_multi_cuda(F, R):
+    """Solve L L^T X = R for F from `cholesky_cuda` (B, n, n) and m
+    right-hand sides R (B, n, m) (kernel K6 on CUDA, the plain version on
+    CPU). Returns X (B, n, m)."""
+    if F.device.type == "cpu":
+        return cho_solve_multi_plain(F, R)
+    if F.dim() != 3 or R.dim() != 3:
+        raise ValueError(f"F, R: want (B, n, n), (B, n, m), got "
+                         f"{tuple(F.shape)}, {tuple(R.shape)}")
+    B, n, m = R.shape
+    _check("F", F, (B, n, n), None)
+    _check("R", R, (B, n, m), F.device)
+    if 4 * n * (n + m) > SOLVE_MULTI_SMEM_MAX:
+        raise ValueError(f"K6 holds F and X in shared memory: n={n}, m={m} "
+                         "does not fit")
+    F, R = F.contiguous(), R.contiguous()
+    X = torch.empty_like(R)
+    err = _lib().chol_solve_multi_launch(
+        F.data_ptr(), R.data_ptr(), X.data_ptr(), B, n, m,
+        torch.cuda.current_stream(F.device).cuda_stream)
+    cuda_build.check(err, "chol_solve_multi")
+    cuda_build.LAUNCHES["chol_solve_multi"] += 1
+    return X

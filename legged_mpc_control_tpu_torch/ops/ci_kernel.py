@@ -1,0 +1,106 @@
+"""Kernel K7 wrapper: every contact-implicit GN-iLQR sweep in one launch
+(csrc/ci_sweeps.cu), the port of the TPU kernel
+`legged_mpc_control_tpu/ops/ci_pallas.py:ci_sweeps_fused`, for flat-zero
+terrain and no wall (`mpc/ci_mpc.ci_pallas_available`).
+
+`ci_sweeps_cuda` launches the kernel on CUDA tensors (float32 only) and runs
+the plain version `ci_sweeps_plain` on CPU tensors. The plain version is the
+dense sweep loop of `mpc/ci_mpc.py` with the kernel's line-search rule: a
+scenario whose five candidates all cost a non-finite amount keeps its
+nominal (the JAX "xla" backend commits alpha = 1 there; ROADMAP "Faults
+found").
+
+Arguments, batch-first as the JAX function takes them: z0 (B,24), Uh0
+(B,H,24) scaled inputs (forces in units of s_f N), ref_zu (B,H,48) scaled
+stage references, refT (B,24), f_mask (B,H,4), rho0 (B,), wts_vec (52,) =
+[c_fb, c_slip, c_cone, c_mask] + the 48-dim tracking diagonal 2 q, mu and
+mass scalars, Iw_inv (B,3,3). Returns (Uh (B,H,24) scaled, Z (B,H+1,24),
+cost (B,)).
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from legged_mpc_control_tpu_torch.ops import cuda_build
+
+NZ = 24
+NW = 52
+
+
+def ci_sweeps_plain(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass,
+                    Iw_inv, *, iters, dt, s_f, rho_min, reg, state_reg):
+    """Plain version of K7 (any dtype, any device)."""
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc
+
+    dtype, dev = z0.dtype, z0.device
+    return ci_mpc._sweeps(
+        z0, Uh0, ref_zu, refT, f_mask,
+        torch.as_tensor(rho0, dtype=dtype, device=dev).expand(z0.shape[0]),
+        wts_vec, torch.as_tensor(mu, dtype=dtype, device=dev),
+        torch.as_tensor(mass, dtype=dtype, device=dev), Iw_inv, None,
+        iters=iters, dt=dt, s_f=s_f, rho_min=rho_min, reg=reg,
+        state_reg=state_reg,
+        solve=functools.partial(ci_mpc._psd_solve_b, backend="plain"),
+        keep_nominal=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = cuda_build.load("ci_sweeps")
+    lib.ci_sweeps_launch.argtypes = (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+        + [ctypes.c_void_p])
+    lib.ci_sweeps_launch.restype = ctypes.c_int
+    return lib
+
+
+def ci_sweeps_cuda(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass,
+                   Iw_inv, *, iters, dt, s_f, rho_min, reg, state_reg):
+    """The sweep loop: kernel K7 on CUDA tensors, the plain version on CPU
+    tensors (module docstring)."""
+    if z0.device.type == "cpu":
+        return ci_sweeps_plain(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec,
+                               mu, mass, Iw_inv, iters=iters, dt=dt, s_f=s_f,
+                               rho_min=rho_min, reg=reg, state_reg=state_reg)
+    B, H = Uh0.shape[0], Uh0.shape[1]
+    dev = z0.device
+    rho0 = torch.as_tensor(rho0, dtype=z0.dtype, device=dev).expand(B)
+    mu = torch.as_tensor(mu, dtype=z0.dtype, device=dev).reshape(1)
+    mass = torch.as_tensor(mass, dtype=z0.dtype, device=dev).reshape(1)
+    args = {"z0": (z0, (B, NZ)), "Uh0": (Uh0, (B, H, NZ)),
+            "ref_zu": (ref_zu, (B, H, 2 * NZ)), "refT": (refT, (B, NZ)),
+            "f_mask": (f_mask, (B, H, 4)), "rho0": (rho0, (B,)),
+            "wts_vec": (wts_vec, (NW,)), "mu": (mu, (1,)),
+            "mass": (mass, (1,)), "Iw_inv": (Iw_inv, (B, 3, 3))}
+    for name, (t, shape) in args.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: kernel K7 takes float32 only, got "
+                            f"{t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, want {dev}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
+    if dev.type != "cuda":
+        raise ValueError(f"z0: tensor on {dev}, want cuda (or cpu for the "
+                         "plain version)")
+    z0, Uh0, ref_zu, refT, f_mask, rho0, Iw_inv = (
+        t.contiguous() for t in (z0, Uh0, ref_zu, refT, f_mask, rho0,
+                                 Iw_inv))
+    misc = torch.cat([wts_vec, mu, mass])
+    U = torch.empty((B, H, NZ), dtype=torch.float32, device=dev)
+    Z = torch.empty((B, H + 1, NZ), dtype=torch.float32, device=dev)
+    cost = torch.empty((B,), dtype=torch.float32, device=dev)
+    kff = torch.empty((B, H, NZ), dtype=torch.float32, device=dev)
+    K = torch.empty((B, H, NZ, NZ), dtype=torch.float32, device=dev)
+    err = _lib().ci_sweeps_launch(
+        z0.data_ptr(), Uh0.data_ptr(), ref_zu.data_ptr(), refT.data_ptr(),
+        f_mask.data_ptr(), rho0.data_ptr(), Iw_inv.data_ptr(),
+        misc.data_ptr(), U.data_ptr(), Z.data_ptr(), cost.data_ptr(),
+        kff.data_ptr(), K.data_ptr(), B, H, int(iters), float(dt),
+        float(s_f), float(rho_min), float(reg), float(state_reg),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "ci_sweeps")
+    cuda_build.LAUNCHES["ci_sweeps"] += 1
+    return U, Z, cost

@@ -26,7 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches: riccati_ipm (K1), substep_chain (K2),
-# substep_chain_kf1 (K3), chol_factor (K4), chol_solve (K5)
+# substep_chain_kf1 (K3), chol_factor (K4), chol_solve (K5),
+# chol_solve_multi (K6), ci_sweeps (K7)
 LAUNCHES = collections.Counter()
 
 

@@ -1,6 +1,6 @@
-"""Single-rigid-body simulator on flat ground
-(`legged_mpc_control_tpu/sim/srb_sim.py`), the stand-in for the
-reference's Gazebo twin. Batch-first.
+"""Single-rigid-body simulator (`legged_mpc_control_tpu/sim/srb_sim.py`),
+the stand-in for the reference's Gazebo twin, on flat ground or a height
+field (`sim/terrain.py`). Batch-first.
 
 Rigid trunk, massless legs, quasi-static contact:
   * commanded torques map to world foot forces F = -R J^-T tau, projected
@@ -12,6 +12,7 @@ Rigid trunk, massless legs, quasi-static contact:
   * the IMU reads specific force R^T (v_dot + g) and body angular velocity.
 """
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -20,11 +21,20 @@ from legged_mpc_control_tpu_torch.config import RobotParams, resolve_device
 from legged_mpc_control_tpu_torch.constants import GRAVITY_EST
 from legged_mpc_control_tpu_torch.models import kinematics as kin
 from legged_mpc_control_tpu_torch.ops import la3, so3
+from legged_mpc_control_tpu_torch.sim import terrain as terrain_mod
 from legged_mpc_control_tpu_torch.tree import Struct
 
 LEG_INERTIA = 0.04        # effective per-joint inertia of a light leg, kg m^2
 LEG_DAMPING = 0.05        # viscous joint damping, N m s/rad
 CONTACT_RELEASE_FZ = 1.0  # N: release the anchor below this support
+
+
+@functools.lru_cache(maxsize=None)
+def _gravity(dtype, device, sign):
+    """[0, 0, sign * g] on `device`, built once: a tensor made from a list
+    at every call is a host-to-device copy that waits for queued work."""
+    return torch.tensor([0.0, 0.0, sign * GRAVITY_EST], dtype=dtype,
+                        device=device)
 
 
 @dataclass
@@ -41,19 +51,26 @@ class SimState(Struct):
 
 
 def sim_init(params: RobotParams, heights, dtype=torch.float32,
-             device="cuda") -> SimState:
-    """Standing start: trunk at `heights` (B,) over flat ground, feet at the
-    default stance under the hips. `params` unbatched."""
+             device="cuda", terrain=None) -> SimState:
+    """Standing start: trunk at `heights` (B,) above the ground under the
+    origin, feet at the default stance under the hips, anchored on the
+    ground (flat, or the `terrain` height field). `params` unbatched."""
     device = resolve_device(device)
     heights = torch.as_tensor(heights, dtype=dtype, device=device)
     B = heights.shape[0]
     pos = torch.zeros((B, 3), dtype=dtype, device=device)
     pos[:, 2] = heights
+    if terrain is not None:
+        pos[:, 2] += terrain_mod.height_at(
+            terrain, torch.zeros(2, dtype=dtype, device=device))
     foot_rel = params.default_foot_pos.to(dtype).expand(B, 4, 3).clone()
     foot_rel[..., 2] = -heights[:, None]
     q_guess = torch.tensor([0.0, 0.8, -1.6], dtype=dtype,
                            device=device).expand(B, 4, 3)
     q = kin.ik_legs(foot_rel, q_guess, params.rho_fix)
+    anchor = foot_rel + pos[:, None]
+    if terrain is not None:
+        anchor[..., 2] = terrain_mod.height_at(terrain, anchor[..., :2])
     quat = torch.zeros((B, 4), dtype=dtype, device=device)
     quat[:, 0] = 1.0
     z3 = torch.zeros((B, 3), dtype=dtype, device=device)
@@ -61,11 +78,14 @@ def sim_init(params: RobotParams, heights, dtype=torch.float32,
         pos=pos, quat=quat, vel=z3, omega=z3.clone(), q=q.reshape(B, 12),
         dq=torch.zeros((B, 12), dtype=dtype, device=device),
         contact=torch.ones((B, 4), dtype=torch.bool, device=device),
-        anchor=foot_rel + pos[:, None], last_acc=z3.clone())
+        anchor=anchor, last_acc=z3.clone())
 
 
-def sim_step(s: SimState, tau, params: RobotParams, dt) -> SimState:
-    """Advance the world by dt under joint torques tau (B,12)."""
+def sim_step(s: SimState, tau, params: RobotParams, dt,
+             terrain=None) -> SimState:
+    """Advance the world by dt under joint torques tau (B,12), on flat
+    ground at z = 0 or on the `terrain` height field, sampled under each
+    foot."""
     B = s.pos.shape[0]
     R = so3.quat_to_rotmat(s.quat)
     R4 = R[:, None]
@@ -87,21 +107,26 @@ def sim_step(s: SimState, tau, params: RobotParams, dt) -> SimState:
                                          -cap),
                            fz], dim=-1)
 
-    # contact: engage on a touchdown from above, release when the support
-    # commanded through the leg vanishes
-    touching = (foot_world[..., 2] <= 0.0) & (foot_world[..., 2] >= -0.02)
+    # contact: engage only on a near-surface crossing from above (a swing
+    # foot whose xy drifts under a raised cell sits below the local
+    # surface: anchoring there would teleport it up the riser), release
+    # when the support commanded through the leg vanishes
+    if terrain is None:
+        ground_h = torch.zeros_like(foot_world[..., 2])
+    else:
+        ground_h = terrain_mod.height_at(terrain, foot_world[..., :2])
+    touching = ((foot_world[..., 2] <= ground_h)
+                & (foot_world[..., 2] >= ground_h - 0.02))
     new_contact = torch.where(s.contact, fz > CONTACT_RELEASE_FZ, touching)
     fresh = (~s.contact & new_contact)[..., None]
-    landed = torch.cat([foot_world[..., :2],
-                        torch.zeros_like(foot_world[..., 2:])], dim=-1)
+    landed = torch.cat([foot_world[..., :2], ground_h[..., None]], dim=-1)
     anchor = torch.where(fresh, landed, s.anchor)
     grf = torch.where(new_contact[..., None], f_world,
                       torch.zeros_like(f_world))
 
     # trunk dynamics
-    g_vec = torch.tensor([0.0, 0.0, -GRAVITY_EST], dtype=s.pos.dtype,
-                         device=s.pos.device)
-    acc = grf.sum(dim=1) / params.mass[..., None] + g_vec
+    acc = (grf.sum(dim=1) / params.mass[..., None]
+           + _gravity(s.pos.dtype, s.pos.device, -1.0))
     I_world = R @ params.trunk_inertia @ R.transpose(-1, -2)
     torque = torch.linalg.cross(anchor - s.pos[:, None], grf).sum(dim=1)
     Iw_om = (I_world @ s.omega[..., None])[..., 0]
@@ -137,8 +162,7 @@ def read_sensors(s: SimState, params: RobotParams) -> dict:
     """Raw proprioception from the sim state (the fake robot's packet),
     with the ground-truth pose for the kf_type-0 bypass."""
     Rt = so3.quat_to_rotmat(s.quat).transpose(-1, -2)
-    g_up = torch.tensor([0.0, 0.0, GRAVITY_EST], dtype=s.pos.dtype,
-                        device=s.pos.device)
+    g_up = _gravity(s.pos.dtype, s.pos.device, 1.0)
     return dict(
         quat=s.quat, pos=s.pos, vel=s.vel,
         imu_acc=(Rt @ (s.last_acc + g_up)[..., None])[..., 0],

@@ -227,3 +227,117 @@ def test_kf1_rollout_launches_the_kf1_chain(trotting_kf1):
     assert bool(torch.isfinite(final.controller.kf.x).all())
     assert float((final.controller.kf.x[:, 2] - final.sim.pos[:, 2])
                  .abs().mean()) < 0.025
+
+
+# --- the contact-implicit slice: K6, K7 and the CI dispatch --------------
+
+def test_chol_solve_multi_matches_plain(dev):
+    """K6 on the gain-solve shape of the CI backward pass (n=24, m=25)."""
+    K = _spd(B, 24, dev, 7)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    R = torch.randn((B, 24, 25), generator=gen, device=dev)
+    F = chol_kernel.cholesky_cuda(K)
+    before = cuda_build.LAUNCHES["chol_solve_multi"]
+    X = chol_kernel.cho_solve_multi_cuda(F, R)
+    assert cuda_build.LAUNCHES["chol_solve_multi"] == before + 1
+    Xp = chol_kernel.cho_solve_multi_plain(F, R)
+    assert float((X - Xp).abs().max() / Xp.abs().max()) < 1e-5
+    r = K.double() @ X.double() - R.double()
+    assert float(r.abs().max() / R.abs().max()) < 1e-5
+    with pytest.raises(TypeError):
+        chol_kernel.cho_solve_multi_cuda(F.double(), R.double())
+
+
+def _ci_walked(dev, batch, terrain=None, ticks=6, iters=24):
+    """An A1 batch walking the CI closed loop for a few ticks on the card,
+    and the policy."""
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc, lci_mpc
+
+    params = a1_params(F32, dev)
+    walk = ci_mpc.make_ci_walk_policy_batched(params, terrain=terrain,
+                                              velx=0.1, iters=iters)
+    stand = lci_mpc.make_stand_policy(params)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    loop = runner.init_loop_batch(params, batch, gen, dtype=F32, device=dev)
+    cs = loop.controller
+    loop = loop.replace(controller=cs.replace(ctrl=cs.ctrl.replace(
+        movement_mode=torch.ones((batch,), dtype=torch.int32, device=dev))))
+    lci = lci_mpc.lci_init_batched(batch, F32, walk.warm_init(batch, F32,
+                                                              dev),
+                                   device=dev)
+    for k in range(ticks):
+        loop, lci = step.closed_loop_tick_lci_batched(
+            loop, lci, params, stand, walk, 0.01 * k, terrain=terrain)
+    return loop, lci, params, stand, walk
+
+
+def test_ci_sweeps_matches_plain(dev):
+    """K7 against its plain version on the solve of a walking CI tick, with
+    the tolerances of tests/test_ci_fused.py for 99 % of the scenarios."""
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc
+    from legged_mpc_control_tpu_torch.ops import ci_kernel
+
+    loop, lci, params, stand, walk = _ci_walked(dev, 64)
+    seen = {}
+    kernel = ci_kernel.ci_sweeps_cuda
+
+    def capture(*a, **kw):
+        seen["args"] = (a, kw)
+        return kernel(*a, **kw)
+    ci_mpc.ci_kernel.ci_sweeps_cuda = capture
+    try:
+        step.closed_loop_tick_lci_batched(loop, lci, params, stand, walk,
+                                          0.1)
+    finally:
+        ci_mpc.ci_kernel.ci_sweeps_cuda = kernel
+    a, kw = seen["args"]
+    before = cuda_build.LAUNCHES["ci_sweeps"]
+    Uk, Zk, ck = ci_kernel.ci_sweeps_cuda(*a, **kw)
+    assert cuda_build.LAUNCHES["ci_sweeps"] == before + 1
+    Up, Zp, cp = ci_kernel.ci_sweeps_plain(*a, **kw)
+    assert bool(torch.isfinite(Uk).all()) and bool(torch.isfinite(ck).all())
+
+    def per(x, y):
+        return (x - y).abs().reshape(x.shape[0], -1).amax(-1)
+    out = ((per(50.0 * Uk[..., :12], 50.0 * Up[..., :12]) > 0.5)
+           | (per(Uk[..., 12:], Up[..., 12:]) > 2e-2)
+           | (per(Zk, Zp) > 2e-3) | ((ck - cp).abs() > 2e-3 * cp.abs()))
+    assert int(out.sum()) <= 0.01 * Uk.shape[0]
+    with pytest.raises(TypeError):
+        ci_kernel.ci_sweeps_cuda(*(x.double() if torch.is_tensor(x) else x
+                                   for x in a), **kw)
+
+
+def test_ci_dispatch_launches(dev):
+    """Flat ground runs K7 (with K2 for the substeps); a height field runs
+    K4 + K6 in every backward stage, and the fused backend refuses it."""
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc
+    from legged_mpc_control_tpu_torch.sim import terrain as terrain_mod
+
+    loop, lci, params, stand, walk = _ci_walked(dev, 8, ticks=1)
+    cuda_build.LAUNCHES.clear()
+    step.closed_loop_tick_lci_batched(loop, lci, params, stand, walk, 0.0)
+    assert cuda_build.LAUNCHES == {"ci_sweeps": 1, "substep_chain": 1}
+    box = terrain_mod.add_box(terrain_mod.flat(3.0, 0.05, F32, dev),
+                              (1.3, 0.0), (2.2, 2.0), 0.03)
+    loop, lci, params, stand, walk = _ci_walked(dev, 8, terrain=box,
+                                                ticks=1, iters=4)
+    cuda_build.LAUNCHES.clear()
+    step.closed_loop_tick_lci_batched(loop, lci, params, stand, walk, 0.0,
+                                      terrain=box)
+    assert cuda_build.LAUNCHES == {"chol_factor": 40,
+                                   "chol_solve_multi": 40}
+    z = torch.zeros((2, 24), device=dev)
+    U = torch.zeros((2, 10, 24), device=dev)
+    Iw = torch.eye(3, device=dev).expand(2, 3, 3)
+    with pytest.raises(ValueError, match="flat-zero"):
+        ci_mpc.ci_solve_batched(z, U, torch.zeros((2, 11, 24), device=dev),
+                                U, box, 13.0, Iw, 0.3, iters=2,
+                                backend="fused")
+    with pytest.raises(TypeError):
+        ci_mpc.ci_solve_batched(z.double(), U.double(),
+                                torch.zeros((2, 11, 24), device=dev,
+                                            dtype=torch.float64),
+                                U.double(), None, 13.0, Iw.double(), 0.3,
+                                iters=2)

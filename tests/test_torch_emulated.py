@@ -1,0 +1,222 @@
+"""The CUDA sources of kernels K6 and K7, compiled as C++ for the CPU and run
+against their plain PyTorch versions: a check of the kernels' arithmetic
+where there is no card.
+
+The sources are built with g++ under a small emulation of the CUDA
+constructs they use: a block's threads are std::threads, `__syncwarp` and
+`__syncthreads` one std::barrier, `__all_sync` and `__shfl_xor_sync` an
+exchange through memory, `__shared__` a static. The `extern "C"` launchers
+(CUDA's `<<<>>>` syntax) are cut off and replaced by launchers that run the
+blocks in turn. Float32 on both sides, so the comparison uses the
+tolerances of the card's check (chip_smoke.py): K6 relative 1e-5, K7 the
+TPU kernel's bracket against XLA (tests/test_ci_fused.py:49-56). Skipped
+where there is no g++ with C++20."""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import pytest
+import torch
+
+from legged_mpc_control_tpu_torch.config import a1_params
+from legged_mpc_control_tpu_torch.control import step
+from legged_mpc_control_tpu_torch.mpc import ci_mpc, lci_mpc
+from legged_mpc_control_tpu_torch.ops import chol_kernel, ci_kernel
+from legged_mpc_control_tpu_torch.ops.cuda_build import CSRC_DIR
+from legged_mpc_control_tpu_torch.parallel import runner
+
+torch.set_num_threads(1)
+
+PRELUDE = r"""
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <functional>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __constant__
+#define __shared__ static
+#define __restrict__
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
+struct float4 { float x, y, z, w; };
+struct Dim { int x; };
+thread_local Dim threadIdx, blockIdx;
+Dim blockDim;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidDevice = 101,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+template <class T>
+cudaError_t cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
+static std::barrier<>* g_bar = nullptr;
+static int g_threads = 32;
+static float g_xchg[1024];
+static int g_pred[1024];
+inline void __syncwarp() { g_bar->arrive_and_wait(); }
+inline void __syncthreads() { g_bar->arrive_and_wait(); }
+inline bool __all_sync(unsigned, bool p) {
+  g_pred[threadIdx.x] = p;
+  g_bar->arrive_and_wait();
+  bool all = true;
+  for (int i = 0; i < g_threads; ++i) all = all && g_pred[i];
+  g_bar->arrive_and_wait();
+  return all;
+}
+inline float __shfl_xor_sync(unsigned, float x, int o) {
+  g_xchg[threadIdx.x] = x;
+  g_bar->arrive_and_wait();
+  const float y = g_xchg[threadIdx.x ^ o];
+  g_bar->arrive_and_wait();
+  return y;
+}
+using std::isfinite;
+static void run_blocks(int B, int T, std::function<void()> body) {
+  g_threads = blockDim.x = T;
+  for (int b = 0; b < B; ++b) {
+    std::barrier<> bar(T);
+    g_bar = &bar;
+    std::vector<std::thread> th;
+    for (int t = 0; t < T; ++t)
+      th.emplace_back([=]() { threadIdx.x = t; blockIdx.x = b; body(); });
+    for (auto& x : th) x.join();
+  }
+}
+"""
+
+CI_LAUNCH = r"""
+extern "C" void ci_sweeps_emu(const float* z0, const float* uh0,
+    const float* ref_zu, const float* refT, const float* f_mask,
+    const float* rho0, const float* iw_inv, const float* misc, float* U,
+    float* Z, float* cost, float* kff, float* K, int B, int H, int iters,
+    float dt, float s_f, float rho_min, float reg, float state_reg) {
+  Args p{z0, uh0, ref_zu, refT, f_mask, rho0, iw_inv, misc, U, Z, cost, kff,
+         K, H, iters, dt, s_f, rho_min, reg, state_reg};
+  run_blocks(B, 32, [&]() { ci_sweeps(p); });
+}
+"""
+
+CHOL_LAUNCH = r"""
+extern "C" void chol_solve_multi_emu(const float* F, const float* R,
+                                     float* X, int B, int n, int m) {
+  int t = 32 * ((m + 31) / 32);
+  if (t > 128) t = 128;
+  run_blocks(B, t, [&]() { chol_solve_multi(F, R, X, n, m); });
+}
+"""
+
+
+def _emulated(name, launcher, out_dir: Path, edits=()):
+    src = (CSRC_DIR / f"{name}.cu").read_text()
+    src = src.replace("#include <cuda_runtime.h>", PRELUDE)
+    src = src[:src.index('extern "C"')]          # the CUDA launchers
+    for old, new in edits:
+        src = src.replace(old, new)
+    cpp = out_dir / f"{name}.cpp"
+    cpp.write_text(src + launcher)
+    lib = out_dir / f"lib{name}_emu.so"
+    proc = subprocess.run(
+        ["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-o",
+         str(lib), str(cpp)], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ (C++20) to compile the CUDA sources for the "
+                    "CPU")
+    out = tmp_path_factory.mktemp("emulated")
+    ci = _emulated("ci_sweeps", CI_LAUNCH, out)
+    ci.ci_sweeps_emu.argtypes = ([ctypes.c_void_p] * 13
+                                 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5)
+    # the kernels' dynamic (extern) shared arrays: static buffers here
+    chol = _emulated("chol_lanes", CHOL_LAUNCH, out, edits=(
+        ("extern __shared__ float sm[];", "static float sm[16384];"),
+        ("extern __shared__ float diag[];", "static float diag[1024];")))
+    chol.chol_solve_multi_emu.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 3
+    return ci, chol
+
+
+def test_k6_emulated_matches_plain(libs):
+    _, chol = libs
+    gen = torch.Generator().manual_seed(0)
+    B, n, m = 4, 24, 25
+    A = torch.randn((B, n, n), generator=gen)
+    F = chol_kernel.cholesky_plain(A @ A.mT + n * torch.eye(n))
+    R = torch.randn((B, n, m), generator=gen)
+    X = torch.empty_like(R)
+    chol.chol_solve_multi_emu(F.data_ptr(), R.data_ptr(), X.data_ptr(), B,
+                              n, m)
+    Xp = chol_kernel.cho_solve_multi_plain(F, R)
+    assert float((X - Xp).abs().max() / Xp.abs().max()) < 1e-5
+
+
+def test_k7_emulated_matches_plain(libs):
+    """K7 on the solve of a walked-in flat CI tick (A1, B=4, 6 ticks of 24
+    sweeps), against its plain version in float32 and float64."""
+    ci, _ = libs
+    f32 = torch.float32
+    p = a1_params(f32, "cpu")
+    B = 4
+    walk = ci_mpc.make_ci_walk_policy_batched(p, velx=0.1, iters=24)
+    stand = lci_mpc.make_stand_policy(p)
+    loop = runner.init_loop_batch(p, B, torch.Generator().manual_seed(0),
+                                  dtype=f32, device="cpu")
+    cs = loop.controller
+    loop = loop.replace(controller=cs.replace(ctrl=cs.ctrl.replace(
+        movement_mode=torch.ones(B, dtype=torch.int32))))
+    lci = lci_mpc.lci_init_batched(B, f32, walk.warm_init(B, f32, "cpu"),
+                                   device="cpu")
+    for k in range(6):
+        loop, lci = step.closed_loop_tick_lci_batched(loop, lci, p, stand,
+                                                      walk, 0.01 * k)
+    seen = {}
+    plain = ci_kernel.ci_sweeps_cuda
+
+    def capture(*a, **kw):
+        seen["args"] = (a, kw)
+        return plain(*a, **kw)
+    ci_mpc.ci_kernel.ci_sweeps_cuda = capture
+    try:
+        step.closed_loop_tick_lci_batched(loop, lci, p, stand, walk, 0.06)
+    finally:
+        ci_mpc.ci_kernel.ci_sweeps_cuda = plain
+    a, kw = seen["args"]
+    z0, Uh0, ref_zu, refT, f_mask, rho0, wvec, mu, mass, Iw_inv = (
+        x.contiguous() for x in a)
+    H = Uh0.shape[1]
+    misc = torch.cat([wvec, mu.reshape(1), mass.reshape(1)])
+    U, Z = torch.empty((B, H, 24)), torch.empty((B, H + 1, 24))
+    cost = torch.empty(B)
+    kff, K = torch.empty((B, H, 24)), torch.empty((B, H, 24, 24))
+    ci.ci_sweeps_emu(
+        z0.data_ptr(), Uh0.data_ptr(), ref_zu.data_ptr(), refT.data_ptr(),
+        f_mask.data_ptr(), rho0.data_ptr(), Iw_inv.data_ptr(),
+        misc.data_ptr(), U.data_ptr(), Z.data_ptr(), cost.data_ptr(),
+        kff.data_ptr(), K.data_ptr(), B, H, kw["iters"], kw["dt"],
+        kw["s_f"], kw["rho_min"], kw["reg"], kw["state_reg"])
+    Up, Zp, cp = ci_kernel.ci_sweeps_plain(*a, **kw)
+    U64, Z64, _ = ci_kernel.ci_sweeps_plain(
+        *(x.double() for x in a), **kw)
+
+    def per(x, y):
+        return (x.double() - y.double()).abs().reshape(B, -1).amax(-1)
+    err = {"forces": 50.0 * per(U[..., :12], Up[..., :12]),
+           "foot_vel": per(U[..., 12:], Up[..., 12:]), "Z": per(Z, Zp),
+           "cost": (cost - cp).abs() / cp.abs()}
+    print({k: float(v.max()) for k, v in err.items()},
+          "forces vs float64:", float(50.0 * per(U[..., :12],
+                                                 U64[..., :12]).max()))
+    for name, tol in (("forces", 0.5), ("foot_vel", 2e-2), ("Z", 2e-3),
+                      ("cost", 2e-3)):
+        assert float(err[name].max()) <= tol, name
+    assert bool(torch.isfinite(U).all())

@@ -19,17 +19,24 @@ from legged_mpc_control_tpu_torch.config import (
     params_from_numpy,
 )
 from legged_mpc_control_tpu_torch.control import step
-from legged_mpc_control_tpu_torch.mpc import convex_mpc, gait, riccati
+from legged_mpc_control_tpu_torch.mpc import (
+    ci_mpc,
+    convex_mpc,
+    gait,
+    lci_mpc,
+    riccati,
+)
 from legged_mpc_control_tpu_torch.ops import (
     chol_kernel,
+    ci_kernel,
     cuda_build,
     filters,
     riccati_kernel,
     substep_kernel,
 )
 from legged_mpc_control_tpu_torch.parallel import runner
-from legged_mpc_control_tpu_torch.sim import srb_sim
-from legged_mpc_control_tpu_torch.tree import tree_map
+from legged_mpc_control_tpu_torch.sim import srb_sim, terrain
+from legged_mpc_control_tpu_torch.tree import to_numpy, tree_map
 from legged_mpc_control_tpu_torch.types import (
     init_ctrl,
     init_feedback,
@@ -63,7 +70,9 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 20
+    assert int(out.stdout) >= 25
+    for name in ("mpc.ci_mpc", "mpc.lci_mpc", "ops.ci_kernel", "sim.terrain"):
+        assert f"{pkg.__name__}.{name}" in MODULES, name
 
 
 @pytest.fixture(scope="module")
@@ -126,6 +135,34 @@ def test_loop_state_round_trip(small_loop):
         assert x.dtype == y.dtype and np.array_equal(x, y)
         return 1
     assert same(tree, loop_state_to_numpy(back)) > 50
+
+
+def test_terrain_weights_and_lci_state_round_trip():
+    """The converters of the contact-implicit slice: terrain, CI weights
+    and LciState (with its warm slot) through numpy and back, exactly."""
+    cpu = "cpu"
+    t = terrain.add_box(terrain.flat(1.0, 0.1, torch.float64, cpu),
+                        (0.2, 0.0), (0.4, 1.0), 0.03)
+    back = terrain.terrain_from_numpy(to_numpy(t))
+    w = ci_mpc.default_weights(torch.float32, cpu)
+    wback = ci_mpc.weights_from_numpy(to_numpy(w))
+    pairs = [(getattr(t, f), getattr(back, f)) for f in vars(t)]
+    pairs += [(getattr(w, f), getattr(wback, f)) for f in vars(w)]
+    walk = ci_mpc.make_ci_walk_policy_batched(go1_params(device=CPU))
+    s = lci_mpc.lci_init_batched(3, torch.float64,
+                                 walk.warm_init(3, torch.float64, cpu),
+                                 device=cpu)
+    s = s.replace(policy_time=torch.tensor([0.1, 0.2, 0.3],
+                                           dtype=torch.float64))
+    sback = lci_mpc.lci_state_from_numpy(lci_mpc.lci_state_to_numpy(s))
+    pairs += [(getattr(s, f), getattr(sback, f)) for f in
+              ("prev_foot_pos", "prev_foot_vel", "policy_time", "prev_mode")]
+    pairs += [(s.policy_warm[k], sback.policy_warm[k]) for k in ("u",
+                                                                "valid")]
+    for a, b in pairs:
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert lci_mpc.lci_state_from_numpy(lci_mpc.lci_state_to_numpy(
+        s.replace(policy_warm=None))).policy_warm is None
 
 
 def test_kf_type_2_raises(small_loop):
@@ -197,6 +234,16 @@ ENTRY_POINTS = {
     "init_ctrl": lambda: init_ctrl(2),
     "init_joy": lambda: init_joy(2),
     "moving_window_init": lambda: filters.moving_window_init(3, 2),
+    "terrain.flat": lambda: terrain.flat(),
+    "terrain.stairs": lambda: terrain.stairs(),
+    "terrain.wall_at_x": lambda: terrain.wall_at_x(0.4),
+    "lci_init_batched": lambda: lci_mpc.lci_init_batched(2),
+    "ci_default_weights": lambda: ci_mpc.default_weights(),
+    "ci_walk_policy_batched.warm_init": lambda:
+        ci_mpc.make_ci_walk_policy_batched(
+            go1_params(device=CPU)).warm_init(2),
+    "ci_walk_policy.warm_init": lambda: ci_mpc.make_ci_walk_policy(
+        go1_params(device=CPU)).warm_init(),
 }
 
 
@@ -208,7 +255,8 @@ def test_entry_points_default_to_the_card(name):
         out = ENTRY_POINTS[name]()
         leaf = out[0] if isinstance(out, tuple) else out
         while not torch.is_tensor(leaf):
-            leaf = next(iter(vars(leaf).values()))
+            leaf = next(iter((leaf if isinstance(leaf, dict)
+                              else vars(leaf)).values()))
         assert leaf.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -244,3 +292,11 @@ def test_cuda_wrappers_refuse_f64_before_touching_a_device():
         chol_kernel.cholesky_cuda(meta(B, 12, 12))
     with pytest.raises(TypeError, match="float32"):
         chol_kernel.cho_solve_cuda(meta(B, 12, 12), meta(B, 12))
+    with pytest.raises(TypeError, match="float32"):
+        chol_kernel.cho_solve_multi_cuda(meta(B, 24, 24), meta(B, 24, 25))
+    with pytest.raises(TypeError, match="float32"):
+        ci_kernel.ci_sweeps_cuda(
+            meta(B, 24), meta(B, H, 24), meta(B, H, 48), meta(B, 24),
+            meta(B, H, 4), meta(B), meta(52), meta(), meta(),
+            meta(B, 3, 3), iters=4, dt=0.02, s_f=50.0, rho_min=0.05,
+            reg=1e-2, state_reg=1e-1)
