@@ -4,11 +4,13 @@
 
 Builds every hand-written CUDA kernel of the port from
 legged_mpc_control_tpu_torch/csrc with nvcc (sm_90a, one nvcc per source,
-all at once), holds each against its plain PyTorch version at its path's
-shapes, then drives the paths of the batched Go1 trot closed loop
-(`parallel/runner.make_batched_rollout`) through their quality gates and
-times them at B=4096: Riccati with kf_type 0 (kernels K1, K2) and 1 (K1,
-K3), and the condensed PDIP and ADMM solvers (K4, K5, K2); then the
+all at once; K4's three variants must show no stack frame and no spills),
+holds each against its plain PyTorch version at its path's shapes (K4 at
+n=120 with B=4096 and B=1, n=360, n=24), then drives the paths of the
+batched Go1 trot closed loop (`parallel/runner.make_batched_rollout`)
+through their quality gates and times them at B=4096: Riccati with kf_type
+0 (kernels K1, K2) and 1 (K1, K3), and the condensed PDIP and ADMM solvers
+(K4, K5, K2); then the
 condensed solve rate and the B=1 solve latencies. Then the contact-implicit
 MPC (`control/step.closed_loop_tick_lci_batched`, A1, B=256): the flat
 closed loop (K7, K2) with its 24-vs-48-sweep gate, K7 against its plain
@@ -213,18 +215,47 @@ def qp_problem(batch, horizon, dev):
     return params, x0, contact, lin
 
 
+# K4's variants, one per shape regime (csrc/chol_factor.cu)
+K4_VARIANTS = ("chol_factor_small", "chol_factor_mid", "chol_factor_large")
+
+
+def ptxas_report(log):
+    """{entry function: its ptxas -v lines (registers; stack frame and
+    spills)} from an nvcc build log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = []
+        elif name is not None and ("registers" in ln or "stack frame" in ln):
+            out[name].append(ln.split(":", 1)[-1].strip())
+    return out
+
+
 def phase_build():
     from legged_mpc_control_tpu_torch.ops import cuda_build
 
-    sources = ("riccati_ipm", "substep_chain", "chol_lanes", "ci_sweeps")
+    sources = ("riccati_ipm", "substep_chain", "chol_factor", "chol_lanes",
+               "ci_sweeps")
     t0 = phase(f"build: nvcc sm_90a, {len(sources)} sources in parallel")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(cuda_build.build, sources))
-    for so in built:
-        log = so.with_suffix(".log").read_text().splitlines()
-        keep = [ln.strip() for ln in log
-                if "registers" in ln or "spill" in ln or "stack frame" in ln]
-        print(f"   {so.name}: " + " | ".join(keep), flush=True)
+    for src, so in zip(sources, built):
+        log = so.with_suffix(".log").read_text()
+        if src != "chol_factor":
+            keep = [ln.strip() for ln in log.splitlines() if "registers" in ln
+                    or "spill" in ln or "stack frame" in ln]
+            print(f"   {so.name}: " + " | ".join(keep), flush=True)
+            continue
+        seen = set()
+        for fn, lines in ptxas_report(log).items():
+            variant = next((v for v in K4_VARIANTS if v in fn), fn)
+            seen.add(variant)
+            print(f"   K4 {variant}: " + " | ".join(lines), flush=True)
+            check(any("0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                      "spill loads" in ln for ln in lines),
+                  f"K4 {variant}: a stack frame or spills")
+        check(seen == set(K4_VARIANTS), f"K4 variants built: {sorted(seen)}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -620,12 +651,15 @@ def tri(n):
     read of a symmetric matrix or of its factor, and write of a factor."""
     return n * (n + 1) // 2
 
-# label -> (batch, horizon, 0-based PDIP iteration of the Newton matrix)
-CHOL_CASES = {"early": (B, 10, 0), "late": (B, 10, 14), "n=360": (512, 30, 0)}
+# label -> (batch, horizon, 0-based PDIP iteration of the Newton matrix);
+# K4 serves n=120 with its mid variant, n=360 with the blocked one, and
+# "b=1" is the B=1 latency cells' shape
+CHOL_CASES = {"early": (B, 10, 0), "late": (B, 10, 14), "n=360": (512, 30, 0),
+              "b=1": (1, 10, 0)}
 # the kernels line's max_abs_err for K4/K5 is the elementwise difference
 # from the plain version where every matrix is far from singular (the late
 # matrices are held by residuals instead)
-WELL_CONDITIONED = ("early", "n=360")
+WELL_CONDITIONED = ("early", "n=360", "b=1")
 
 
 def phase_chol(dev, card):
@@ -663,8 +697,9 @@ def phase_chol(dev, card):
     stats = {}
     for label, (batch, horizon, it) in CHOL_CASES.items():
         n = 12 * horizon
-        t0 = phase(f"K4/K5 chol_lanes vs plain, B={batch}, n={n}, PDIP "
-                   f"Newton matrix of iteration {it + 1} ({label})")
+        t0 = phase(f"K4 chol_factor, K5 chol_solve vs plain, B={batch}, "
+                   f"n={n}, PDIP Newton matrix of iteration {it + 1} "
+                   f"({label})")
         K, rhs = newton_matrices(batch, horizon, dev, it)
         F = chol_kernel.cholesky_cuda(K)
         Fp = chol_kernel.cholesky_plain(K)
@@ -716,9 +751,10 @@ def phase_chol(dev, card):
                                                       Fp.tril()), reps=3),
             bound4=bound(batch * tri(n) * 2 * 4, batch * n ** 3 / 3),
             bound5=bound(batch * (tri(n) + 2 * n) * 4, batch * 2 * n * n))
-        print(f"   time ({card}): K4 kernel {entry['ms4']:.3f} ms, plain "
-              f"{entry['plain4']:.3f} ms, torch.linalg.cholesky_ex "
-              f"{entry['lib4']:.3f} ms, bound {entry['bound4'][0]:.4f} ms "
+        print(f"   time ({card}): K4 kernel {entry['ms4']:.4f} ms, plain "
+              f"{entry['plain4']:.4f} ms, torch.linalg.cholesky_ex "
+              f"{entry['lib4']:.4f} ms (x{entry['lib4'] / entry['ms4']:.2f} "
+              f"the kernel's time), bound {entry['bound4'][0]:.4f} ms "
               f"({entry['bound4'][1]}); K5 kernel {entry['ms5']:.3f} ms, "
               f"plain {entry['plain5']:.3f} ms, torch.cholesky_solve "
               f"{entry['lib5']:.3f} ms, bound {entry['bound5'][0]:.4f} ms "
@@ -1418,7 +1454,8 @@ def phase_k6(dev, card, st):
           f"ms, torch.cholesky_solve {lib_ms:.4f} ms; bound {b_ms:.5f} ms "
           f"({b_by}); K4 at n={n}: kernel {ms4:.4f} ms (max |F - F_plain| "
           f"{err4:.3e}), plain {plain4:.4f} ms, torch.linalg.cholesky_ex "
-          f"{lib4:.4f} ms, bound {b4[0]:.5f} ms ({b4[1]})", flush=True)
+          f"{lib4:.4f} ms (x{lib4 / ms4:.2f} the kernel's time), bound "
+          f"{b4[0]:.5f} ms ({b4[1]})", flush=True)
     done(t0)
     return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by)
@@ -1470,7 +1507,7 @@ def main():
         row("substep_chain_kf1", "substep_chain.cu", REPO_K3, k3_launches,
             k3["err"], k3["ms"], k3["plain_ms"],
             (k3["bound_ms"], k3["bound_by"]), None),
-        row("chol_factor", "chol_lanes.cu", REPO_K4,
+        row("chol_factor", "chol_factor.cu", REPO_K4,
             pdip_launches["chol_factor"],
             max(chol[c]["err4"] for c in WELL_CONDITIONED), timed["ms4"],
             timed["plain4"], timed["bound4"], timed["lib4"]),

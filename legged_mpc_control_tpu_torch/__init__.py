@@ -9,7 +9,8 @@ hand-written CUDA kernels: the Riccati interior-point MPC solve
 (`ops/riccati_kernel.py`, `csrc/riccati_ipm.cu`), the fused low-level/sim
 substep chain with and without the in-chain KF (`ops/substep_kernel.py`,
 `csrc/substep_chain.cu`) and the batched Cholesky factor and solve of the
-condensed solvers (`ops/chol_kernel.py`, `csrc/chol_lanes.cu`). The
+condensed solvers (`ops/chol_kernel.py`, `csrc/chol_factor.cu` and
+`csrc/chol_lanes.cu`). The
 contact-implicit MPC (`mpc/ci_mpc.py` behind the LCI seam `mpc/lci_mpc.py`,
 `control/step.closed_loop_tick_lci_batched`) runs all its sweeps in one
 kernel on flat ground (`ops/ci_kernel.py`, `csrc/ci_sweeps.cu`) and its

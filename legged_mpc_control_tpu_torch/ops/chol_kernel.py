@@ -1,5 +1,6 @@
-"""Kernels K4, K5 and K6 wrapper: batched Cholesky factor and solves
-(csrc/chol_lanes.cu), the port of the TPU kernels
+"""Kernels K4, K5 and K6 wrapper: batched Cholesky factor
+(csrc/chol_factor.cu) and solves (csrc/chol_lanes.cu), the port of the TPU
+kernels
 `legged_mpc_control_tpu/ops/chol_pallas.py:cholesky_lanes` (K4),
 `cho_solve_lanes` (K5, one right-hand side) and `cho_solve_lanes_multi`
 (K6, m right-hand sides).
@@ -23,6 +24,7 @@ JAX package's "xla" backend computes) on CPU tensors.
 
 import ctypes
 import functools
+import types
 
 import torch
 
@@ -62,11 +64,13 @@ SOLVE_MULTI_SMEM_MAX = 232448
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = cuda_build.load("chol_lanes")
-    lib.chol_factor_launch.argtypes = [
+    """Both libraries, K4's and K5/K6's, as one namespace of launchers."""
+    factor = cuda_build.load("chol_factor")
+    factor.chol_factor_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
-    lib.chol_factor_launch.restype = ctypes.c_int
+    factor.chol_factor_launch.restype = ctypes.c_int
+    lib = cuda_build.load("chol_lanes")
     lib.chol_solve_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
@@ -75,7 +79,10 @@ def _lib():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.chol_solve_multi_launch.restype = ctypes.c_int
-    return lib
+    return types.SimpleNamespace(
+        chol_factor_launch=factor.chol_factor_launch,
+        chol_solve_launch=lib.chol_solve_launch,
+        chol_solve_multi_launch=lib.chol_solve_multi_launch)
 
 
 def _check(name, t, shape, dev):

@@ -162,13 +162,17 @@ def _spd(batch, n, dev, seed):
     return A @ A.transpose(-1, -2) * 0.05 + 5.0 * torch.eye(n, device=dev)
 
 
-@pytest.mark.parametrize("n", [7, 120, 360])
-def test_chol_kernels_match_plain(dev, n):
-    """K4/K5 against the plain versions by residuals; n=360 takes the
-    device-memory path. The factor mirrors L into its upper triangle."""
-    K = _spd(B, n, dev, n)
+@pytest.mark.parametrize("batch", [1, 5, B])
+@pytest.mark.parametrize("n", [7, 24, 33, 120, 128, 129, 360])
+def test_chol_kernels_match_plain(dev, n, batch):
+    """K4/K5 against the plain versions by residuals, on each side of K4's
+    dispatch (a warp a matrix for n <= 32, a register-tiled block for
+    n <= 128, the blocked panel factor above; batches 1 and 5 leave the
+    small variant's last block of eight warps ragged). The factor mirrors
+    L into its upper triangle."""
+    K = _spd(batch, n, dev, n)
     gen = torch.Generator(device=dev).manual_seed(0)
-    b = torch.randn((B, n), generator=gen, device=dev)
+    b = torch.randn((batch, n), generator=gen, device=dev)
     before = (cuda_build.LAUNCHES["chol_factor"],
               cuda_build.LAUNCHES["chol_solve"])
     F = chol_kernel.cholesky_cuda(K)

@@ -1,16 +1,19 @@
-"""The CUDA sources of kernels K6 and K7, compiled as C++ for the CPU and run
-against their plain PyTorch versions: a check of the kernels' arithmetic
+"""The CUDA sources of kernels K4, K6 and K7, compiled as C++ for the CPU and
+run against their plain PyTorch versions: a check of the kernels' arithmetic
 where there is no card.
 
 The sources are built with g++ under a small emulation of the CUDA
-constructs they use: a block's threads are std::threads, `__syncwarp` and
-`__syncthreads` one std::barrier, `__all_sync` and `__shfl_xor_sync` an
-exchange through memory, `__shared__` a static. The `extern "C"` launchers
-(CUDA's `<<<>>>` syntax) are cut off and replaced by launchers that run the
-blocks in turn. Float32 on both sides, so the comparison uses the
-tolerances of the card's check (chip_smoke.py): K6 relative 1e-5, K7 the
-TPU kernel's bracket against XLA (tests/test_ci_fused.py:49-56). Skipped
-where there is no g++ with C++20."""
+constructs they use: a block's threads are std::threads, `__syncthreads`
+one std::barrier of the block and `__syncwarp` one of the warp (a thread
+that returns drops out of both, as an exited thread does on the card),
+`__all_sync`, `__shfl_xor_sync` and `__shfl_sync` an exchange through
+memory within the warp, `__shared__` a static. The
+`extern "C"` launchers (CUDA's `<<<>>>` syntax) are cut off and replaced by
+launchers that run the blocks in turn. Float32 on both sides, so the
+comparison uses the tolerances of the card's check (chip_smoke.py): K4 and
+K6 relative 1e-5, K7 the TPU kernel's bracket against XLA
+(tests/test_ci_fused.py:49-56). Skipped where there is no g++ with
+C++20."""
 
 import ctypes
 import shutil
@@ -34,6 +37,7 @@ PRELUDE = r"""
 #include <cmath>
 #include <cstddef>
 #include <functional>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
@@ -55,36 +59,55 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 template <class T>
 cudaError_t cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
-static std::barrier<>* g_bar = nullptr;
-static int g_threads = 32;
+static std::barrier<>* g_bar = nullptr;                  // the block's
+static std::vector<std::unique_ptr<std::barrier<>>> g_warp_bar;  // a warp's
 static float g_xchg[1024];
 static int g_pred[1024];
-inline void __syncwarp() { g_bar->arrive_and_wait(); }
+inline std::barrier<>& warp_bar() { return *g_warp_bar[threadIdx.x / 32]; }
+inline void __syncwarp() { warp_bar().arrive_and_wait(); }
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 inline bool __all_sync(unsigned, bool p) {
   g_pred[threadIdx.x] = p;
-  g_bar->arrive_and_wait();
+  warp_bar().arrive_and_wait();
   bool all = true;
-  for (int i = 0; i < g_threads; ++i) all = all && g_pred[i];
-  g_bar->arrive_and_wait();
+  for (int i = threadIdx.x & ~31; i < (threadIdx.x | 31) + 1; ++i)
+    all = all && g_pred[i];
+  warp_bar().arrive_and_wait();
   return all;
 }
 inline float __shfl_xor_sync(unsigned, float x, int o) {
   g_xchg[threadIdx.x] = x;
-  g_bar->arrive_and_wait();
+  warp_bar().arrive_and_wait();
   const float y = g_xchg[threadIdx.x ^ o];
-  g_bar->arrive_and_wait();
+  warp_bar().arrive_and_wait();
+  return y;
+}
+inline float __shfl_sync(unsigned, float x, int src) {
+  g_xchg[threadIdx.x] = x;
+  warp_bar().arrive_and_wait();
+  const float y = g_xchg[(threadIdx.x & ~31) | src];
+  warp_bar().arrive_and_wait();
   return y;
 }
 using std::isfinite;
 static void run_blocks(int B, int T, std::function<void()> body) {
-  g_threads = blockDim.x = T;
+  blockDim.x = T;
   for (int b = 0; b < B; ++b) {
     std::barrier<> bar(T);
     g_bar = &bar;
+    g_warp_bar.clear();
+    for (int w = 0; w * 32 < T; ++w)
+      g_warp_bar.emplace_back(new std::barrier<>(T - 32 * w < 32 ? T - 32 * w
+                                                                  : 32));
     std::vector<std::thread> th;
     for (int t = 0; t < T; ++t)
-      th.emplace_back([=]() { threadIdx.x = t; blockIdx.x = b; body(); });
+      th.emplace_back([=]() {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        body();
+        g_bar->arrive_and_drop();
+        warp_bar().arrive_and_drop();
+      });
     for (auto& x : th) x.join();
   }
 }
@@ -108,6 +131,21 @@ extern "C" void chol_solve_multi_emu(const float* F, const float* R,
   int t = 32 * ((m + 31) / 32);
   if (t > 128) t = 128;
   run_blocks(B, t, [&]() { chol_solve_multi(F, R, X, n, m); });
+}
+"""
+
+FACTOR_LAUNCH = r"""
+extern "C" void chol_factor_emu(const float* K, float* F, int B, int n) {
+  if (n <= SMALL_N) {
+    run_blocks((B + SMALL_MATS - 1) / SMALL_MATS, SMALL_MATS * WARP,
+               [&]() { chol_factor_small(K, F, B, n); });
+  } else if (n <= MID_N) {
+    run_blocks(B, MID_T * MID_T, [&]() { chol_factor_mid(K, F, n); });
+  } else {
+    int nb = (int)(SMEM_MAX / ((n | 1) * sizeof(float)));
+    if (nb > NB) nb = NB;
+    run_blocks(B, LARGE_THREADS, [&]() { chol_factor_large(K, F, n, nb); });
+  }
 }
 """
 
@@ -139,11 +177,46 @@ def libs(tmp_path_factory):
                                  + [ctypes.c_int] * 3 + [ctypes.c_float] * 5)
     # the kernels' dynamic (extern) shared arrays: static buffers here
     chol = _emulated("chol_lanes", CHOL_LAUNCH, out, edits=(
-        ("extern __shared__ float sm[];", "static float sm[16384];"),
-        ("extern __shared__ float diag[];", "static float diag[1024];")))
+        ("extern __shared__ float sm[];", "static float sm[16384];"),))
     chol.chol_solve_multi_emu.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 3
     return ci, chol
+
+
+@pytest.fixture(scope="module")
+def factor_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ (C++20) to compile the CUDA sources for the "
+                    "CPU")
+    lib = _emulated("chol_factor", FACTOR_LAUNCH,
+                    tmp_path_factory.mktemp("emulated_k4"), edits=(
+        ("extern __shared__ float tri[];", "static float tri[128 * 129];"),
+        ("extern __shared__ float panel[];", "static float panel[65536];")))
+    lib.chol_factor_emu.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    return lib
+
+
+@pytest.mark.parametrize("n,batch", [(7, 3), (24, 3), (120, 2), (360, 2)])
+def test_k4_emulated_matches_plain(factor_lib, n, batch):
+    """K4's three variants (a warp a matrix for n <= 32, a register-tiled
+    block for n <= 128, the blocked panel factor above) on well-conditioned
+    SPD matrices, NaN above the diagonal (only the lower triangle may be
+    read) and a negative pivot in matrix 1 (its factor, and only its, must
+    come out non-finite)."""
+    gen = torch.Generator().manual_seed(n)
+    A = torch.randn((batch, n, n), generator=gen)
+    K = A @ A.mT * 0.05 + 5.0 * torch.eye(n)
+    K[1, n // 2, n // 2] = -1.0
+    nan_upper = torch.full((n, n), float("nan")).triu(1)
+    Kin = (K.tril() + nan_upper).contiguous()
+    F = torch.empty_like(K)
+    factor_lib.chol_factor_emu(Kin.data_ptr(), F.data_ptr(), batch, n)
+    finite = torch.isfinite(F.reshape(batch, -1)).all(-1).tolist()
+    assert finite == [i != 1 for i in range(batch)]
+    good = torch.arange(batch) != 1
+    Fg, Fp = F[good], chol_kernel.cholesky_plain(K[good])
+    assert torch.equal(Fg, Fg.mT)
+    assert float((Fg - Fp).abs().max() / Fp.abs().max()) < 1e-5
 
 
 def test_k6_emulated_matches_plain(libs):
