@@ -4,9 +4,10 @@
 
 Builds every hand-written CUDA kernel of the port from
 legged_mpc_control_tpu_torch/csrc with nvcc (sm_90a, one nvcc per source,
-all at once; K4's three variants must show no stack frame and no spills),
-holds each against its plain PyTorch version at its path's shapes (K4 at
-n=120 with B=4096 and B=1, n=360, n=24), then drives the paths of the
+all at once; K1's two and K4's three variants must show no stack frame and
+no spills), holds each against its plain PyTorch version at its path's
+shapes (K1 at H=10 and H=30, and at the loop's own call, iters=4 warm; K4
+at n=120 with B=4096 and B=1, n=360, n=24), then drives the paths of the
 batched Go1 trot closed loop (`parallel/runner.make_batched_rollout`)
 through their quality gates and times them at B=4096: Riccati with kf_type
 0 (kernels K1, K2) and 1 (K1, K3), and the condensed PDIP and ADMM solvers
@@ -217,6 +218,12 @@ def qp_problem(batch, horizon, dev):
 
 # K4's variants, one per shape regime (csrc/chol_factor.cu)
 K4_VARIANTS = ("chol_factor_small", "chol_factor_mid", "chol_factor_large")
+# K1's instantiations by the place of its per-stage store (mangled
+# riccati_ipm_kernel<true> / <false>, csrc/riccati_ipm.cu)
+K1_VARIANTS = ("riccati_ipm_kernelILb1E", "riccati_ipm_kernelILb0E")
+# sources whose every kernel must build with no stack frame and no spills
+GATED = {"riccati_ipm": ("K1", K1_VARIANTS),
+         "chol_factor": ("K4", K4_VARIANTS)}
 
 
 def ptxas_report(log):
@@ -242,20 +249,22 @@ def phase_build():
         built = list(pool.map(cuda_build.build, sources))
     for src, so in zip(sources, built):
         log = so.with_suffix(".log").read_text()
-        if src != "chol_factor":
+        if src not in GATED:
             keep = [ln.strip() for ln in log.splitlines() if "registers" in ln
                     or "spill" in ln or "stack frame" in ln]
             print(f"   {so.name}: " + " | ".join(keep), flush=True)
             continue
+        label, variants = GATED[src]
         seen = set()
         for fn, lines in ptxas_report(log).items():
-            variant = next((v for v in K4_VARIANTS if v in fn), fn)
+            variant = next((v for v in variants if v in fn), fn)
             seen.add(variant)
-            print(f"   K4 {variant}: " + " | ".join(lines), flush=True)
+            print(f"   {label} {variant}: " + " | ".join(lines), flush=True)
             check(any("0 bytes stack frame, 0 bytes spill stores, 0 bytes "
                       "spill loads" in ln for ln in lines),
-                  f"K4 {variant}: a stack frame or spills")
-        check(seen == set(K4_VARIANTS), f"K4 variants built: {sorted(seen)}")
+                  f"{label} {variant}: a stack frame or spills")
+        check(seen == set(variants),
+              f"{label} variants built: {sorted(seen)}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -349,6 +358,35 @@ def phase_k1(dev, card):
               f"ms per cold solve; bound {b_ms:.4f} ms ({b_by})", flush=True)
         stats[horizon] = dict(err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=b_ms, bound_by=b_by)
+        if horizon == 10:
+            # the launch the main path makes every tick: iters=4, warm
+            # from a shifted solution
+            uk = riccati_kernel.solve_qp_riccati_cuda(
+                *args, DT, iters=4, warm_u=warm_u)[0]
+            up = riccati.solve_qp_riccati_batched(
+                *args, DT, iters=4, warm_u=warm_u)[0]
+            u64 = riccati.solve_qp_riccati_batched(
+                *args64, DT, iters=4, warm_u=warm_u.double())[0]
+            check(bool(torch.isfinite(uk).all()), "K1 iters=4: non-finite")
+            d = (uk - up).abs().amax(-1)
+            q99 = float(torch.quantile(d.double(), 0.99))
+            e64 = float((uk.double() - u64).abs().max())
+            p64 = float((up.double() - u64).abs().max())
+            check(q99 <= K1_BRACKET,
+                  f"K1 iters=4 warm: p99 GRF difference {q99}")
+            check(e64 <= 1.5 * p64 + K1_BRACKET,
+                  f"K1 iters=4 warm: {e64} N from float64, plain {p64} N")
+            ms4 = cuda_ms(lambda: riccati_kernel.solve_qp_riccati_cuda(
+                *args, DT, iters=4, warm_u=warm_u), reps=20)
+            b4 = bound(B * 4 * (NX_IN_K1(horizon) + NX_OUT_K1(horizon)
+                                + 12 * horizon),
+                       B * horizon * 4 * K1_FLOP_PER_STAGE_ITER)
+            print(f"   the loop's call, iters=4 warm ({card}): kernel "
+                  f"{ms4:.3f} ms; bound {b4[0]:.4f} ms ({b4[1]}); "
+                  f"max|u_kernel - u_plain| {float(d.max()):.3e} N "
+                  f"(p99 {q99:.3e}); vs float64: kernel {e64:.3e} N, plain "
+                  f"{p64:.3e} N", flush=True)
+            stats["loop"] = dict(ms=ms4, bound_ms=b4[0], bound_by=b4[1])
         done(t0)
     return stats
 

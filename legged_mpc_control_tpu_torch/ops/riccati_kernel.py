@@ -4,8 +4,9 @@
 
 `solve_qp_riccati_cuda` has the contract of the TPU wrapper: it returns
 (u (B,12H) with swing legs zeroed, gap (B,), lam (B,H,4,6)). On CUDA tensors
-it launches the kernel (f32 only, any horizon); on CPU tensors it runs the
-plain version `mpc/riccati.py:solve_qp_riccati_batched`.
+it launches the kernel (f32 only, any horizon, batch-first tensors read in
+place); on CPU tensors it runs the plain version
+`mpc/riccati.py:solve_qp_riccati_batched`.
 """
 
 import ctypes
@@ -22,12 +23,12 @@ NX = 12
 def _lib():
     lib = cuda_build.load("riccati_ipm")
     lib.riccati_ipm_launch.argtypes = (
-        [ctypes.c_void_p] * 14
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
         + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-           ctypes.c_int, ctypes.c_void_p])
+           ctypes.c_void_p])
     lib.riccati_ipm_launch.restype = ctypes.c_int
-    lib.riccati_ipm_scratch_per_stage.argtypes = []
-    lib.riccati_ipm_scratch_per_stage.restype = ctypes.c_int
+    lib.riccati_ipm_scratch_floats.argtypes = [ctypes.c_int]
+    lib.riccati_ipm_scratch_floats.restype = ctypes.c_int
     return lib
 
 
@@ -52,9 +53,13 @@ def _check_args(x0, x_ref, A_seq, Bmat, contact, warm_u):
                             f"{t.dtype} on {t.device}")
 
 
-def _lanes(x):
-    """(B, ...) -> (..., B) contiguous: batch innermost."""
-    return x.permute(*range(1, x.dim()), 0).contiguous()
+def _per_scenario(v, n, B, dev):
+    """(tensor, batch stride) of a value shared by the batch (stride 0) or
+    given per scenario, n floats a scenario."""
+    t = torch.as_tensor(v, dtype=torch.float32, device=dev)
+    if t.numel() == n:
+        return t.reshape(n).contiguous(), 0
+    return t.reshape(-1, n).expand(B, n).contiguous(), n
 
 
 def solve_qp_riccati_cuda(x0, x_ref, A_seq, Bmat, contact, q_weights,
@@ -72,37 +77,25 @@ def solve_qp_riccati_cuda(x0, x_ref, A_seq, Bmat, contact, q_weights,
     _check_args(x0, x_ref, A_seq, Bmat, contact, warm_u)
     B, H, _ = x_ref.shape
     dev = x_ref.device
-
-    def per_scenario(v, shape):
-        return torch.as_tensor(v, dtype=torch.float32,
-                               device=dev).expand(shape)
-
-    x0_t = _lanes(x0)
-    xref_t = _lanes(x_ref)
-    A_t = _lanes(A_seq)
-    B_t = _lanes(Bmat)
-    c_t = _lanes(contact)
-    qw_t = _lanes(per_scenario(q_weights, (B, NX)))
-    rw_t = _lanes(per_scenario(r_weights, (B, NX)))
-    mu_t = per_scenario(mu, (B,)).contiguous()
-    fz_t = per_scenario(fz_max, (B,)).contiguous()
-    u0_t = None if warm_u is None else _lanes(warm_u.reshape(B, H, NX))
+    ins = [t.contiguous() for t in (x0, x_ref, A_seq, Bmat, contact)]
+    if ins[4].data_ptr() % 16:          # read by float4, a stage at a time
+        ins[4] = ins[4].clone()
+    (qw, qs), (rw, rs), (mu_t, ms), (fz, fs) = (
+        _per_scenario(v, n, B, dev) for v, n in
+        ((q_weights, NX), (r_weights, NX), (mu, 1), (fz_max, 1)))
+    u0 = None if warm_u is None else warm_u.contiguous()
 
     lib = _lib()
-    u_t = torch.empty((H, NX, B), dtype=torch.float32, device=dev)
-    lam_t = torch.empty((H, 4, 6, B), dtype=torch.float32, device=dev)
+    u = torch.empty((B, H * NX), dtype=torch.float32, device=dev)
+    lam = torch.empty((B, H, 4, 6), dtype=torch.float32, device=dev)
     gap = torch.empty((B,), dtype=torch.float32, device=dev)
-    scratch = torch.empty((H * lib.riccati_ipm_scratch_per_stage(), B),
+    scratch = torch.empty((B, lib.riccati_ipm_scratch_floats(H)),
                           dtype=torch.float32, device=dev)
-    ptrs = [x0_t, xref_t, A_t, B_t, c_t, qw_t, rw_t, mu_t, fz_t]
     err = lib.riccati_ipm_launch(
-        *[t.data_ptr() for t in ptrs],
-        None if u0_t is None else u0_t.data_ptr(),
-        u_t.data_ptr(), gap.data_ptr(), lam_t.data_ptr(), scratch.data_ptr(),
-        B, H, int(iters), float(dt), int(warm_u is not None),
+        *[t.data_ptr() for t in (*ins, qw, rw, mu_t, fz)], qs, rs, ms, fs,
+        None if u0 is None else u0.data_ptr(), u.data_ptr(), gap.data_ptr(),
+        lam.data_ptr(), scratch.data_ptr(), B, H, int(iters), float(dt),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "riccati_ipm")
     cuda_build.LAUNCHES["riccati_ipm"] += 1
-    u = u_t.permute(2, 0, 1).reshape(B, H * NX)
-    return u, gap, lam_t.permute(3, 0, 1, 2)
-
+    return u, gap, lam

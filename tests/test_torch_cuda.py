@@ -57,18 +57,23 @@ def trotting_kf1(dev):
     return _trot(dev, 1)
 
 
+# H=1 and 10 keep K1's per-stage store in shared memory, 13 and 30 in
+# device scratch; B=1 and 5 leave a block with idle warps
 @pytest.mark.parametrize("start", ["cold", "warm"])
-def test_riccati_kernel_matches_plain(trotting, start):
+@pytest.mark.parametrize("batch", [1, 5, B])
+@pytest.mark.parametrize("horizon", [1, 10, 13, 30])
+def test_riccati_kernel_matches_plain(trotting, start, batch, horizon):
     loop, params, pattern = trotting
     _, stage = convex_mpc.mpc_prepare(loop.controller, params, pattern,
-                                      0.01, horizon=10)
-    args = (stage.x0, stage.x_ref, stage.A_seq, stage.B, stage.contact,
-            stage.q_weights, stage.r_weights, stage.mu, stage.fz_max, 0.01)
+                                      0.01, horizon=horizon)
+    args = tuple(x[:batch] for x in (
+        stage.x0, stage.x_ref, stage.A_seq, stage.B, stage.contact,
+        stage.q_weights, stage.r_weights, stage.mu, stage.fz_max)) + (0.01,)
     warm_u = None
     if start == "warm":
         warm_u = riccati.warm_shift(
             riccati.solve_qp_riccati_batched(*args, iters=15)[0],
-            stage.contact)
+            args[4])
     before = cuda_build.LAUNCHES["riccati_ipm"]
     uk, gk, lk = riccati_kernel.solve_qp_riccati_cuda(*args, iters=15,
                                                       warm_u=warm_u)
@@ -79,14 +84,25 @@ def test_riccati_kernel_matches_plain(trotting, start):
         *(a.double() if torch.is_tensor(a) else a for a in args), iters=15,
         warm_u=None if warm_u is None else warm_u.double())[0]
     assert bool(torch.isfinite(uk).all()) and bool((gk < 1e-4).all())
-    # the float32 bracket of chip_smoke.py: 99 % within 2e-2 N of the
-    # plain version, and no farther from float64 than the plain version
+    # no farther from float64 than the plain version, over the batch and,
+    # for 99 % of the scenarios, scenario by scenario
+    e64 = (uk.double() - u64).abs().amax(-1)
+    p64 = (up.double() - u64).abs().amax(-1)
+    assert float(e64.max()) <= 1.5 * float(p64.max()) + 2e-2
+    assert float(torch.quantile(e64 - 1.5 * p64, 0.99)) <= 2e-2
     d = (uk - up).abs().amax(-1)
-    assert float(torch.quantile(d.double(), 0.99)) <= 2e-2
-    e64 = float((uk.double() - u64).abs().max())
-    p64 = float((up.double() - u64).abs().max())
-    assert e64 <= 1.5 * p64 + 2e-2
-    assert lk.shape == lp.shape == (B, 10, 4, 6)
+    if batch == B:
+        # the float32 bracket of chip_smoke.py: 99 % within 2e-2 N of the
+        # plain version
+        assert float(torch.quantile(d.double(), 0.99)) <= 2e-2
+    else:
+        # too few scenarios for a 1 % tail (the 0.99 quantile is the
+        # largest): each within the bracket, or nearer float64 than the
+        # plain version is. At H=30, B=5, cold one scenario is 0.10 N
+        # from plain, where plain is 0.155 N from float64 and this kernel
+        # and its thread-a-scenario predecessor both 0.053 N (PERF.md).
+        assert bool(((d <= 2e-2) | (e64 < p64)).all())
+    assert lk.shape == lp.shape == (batch, horizon, 4, 6)
 
 
 def test_riccati_kernel_refuses_float64(dev):

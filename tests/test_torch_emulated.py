@@ -1,6 +1,6 @@
-"""The CUDA sources of kernels K4, K6 and K7, compiled as C++ for the CPU and
-run against their plain PyTorch versions: a check of the kernels' arithmetic
-where there is no card.
+"""The CUDA sources of kernels K1, K4, K6 and K7, compiled as C++ for the CPU
+and run against their plain PyTorch versions: a check of the kernels'
+arithmetic where there is no card.
 
 The sources are built with g++ under a small emulation of the CUDA
 constructs they use: a block's threads are std::threads, `__syncthreads`
@@ -10,8 +10,9 @@ that returns drops out of both, as an exited thread does on the card),
 memory within the warp, `__shared__` a static. The
 `extern "C"` launchers (CUDA's `<<<>>>` syntax) are cut off and replaced by
 launchers that run the blocks in turn. Float32 on both sides, so the
-comparison uses the tolerances of the card's check (chip_smoke.py): K4 and
-K6 relative 1e-5, K7 the TPU kernel's bracket against XLA
+comparison uses the tolerances of the card's check (chip_smoke.py): K1 its
+2e-2 N GRF bracket and the float64 rule, K4 and K6 relative 1e-5, K7 the
+TPU kernel's bracket against XLA
 (tests/test_ci_fused.py:49-56). Skipped where there is no g++ with
 C++20."""
 
@@ -23,9 +24,15 @@ from pathlib import Path
 import pytest
 import torch
 
-from legged_mpc_control_tpu_torch.config import a1_params
+from legged_mpc_control_tpu_torch.config import a1_params, go1_params
 from legged_mpc_control_tpu_torch.control import step
-from legged_mpc_control_tpu_torch.mpc import ci_mpc, lci_mpc
+from legged_mpc_control_tpu_torch.mpc import (
+    ci_mpc,
+    convex_mpc,
+    gait,
+    lci_mpc,
+    riccati,
+)
 from legged_mpc_control_tpu_torch.ops import chol_kernel, ci_kernel
 from legged_mpc_control_tpu_torch.ops.cuda_build import CSRC_DIR
 from legged_mpc_control_tpu_torch.parallel import runner
@@ -49,6 +56,7 @@ PRELUDE = r"""
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
 struct Dim { int x; };
 thread_local Dim threadIdx, blockIdx;
 Dim blockDim;
@@ -146,6 +154,26 @@ extern "C" void chol_factor_emu(const float* K, float* F, int B, int n) {
     if (nb > NB) nb = NB;
     run_blocks(B, LARGE_THREADS, [&]() { chol_factor_large(K, F, n, nb); });
   }
+}
+"""
+
+RICCATI_LAUNCH = r"""
+extern "C" int riccati_ipm_scratch_emu(int H) {
+  return H <= SMEM_MAX_H ? 0 : H * ST_PER_STAGE;
+}
+extern "C" void riccati_ipm_emu(const float* x0, const float* xref,
+    const float* A, const float* Bm, const float* contact, const float* qw,
+    const float* rw, const float* mu, const float* fz, int qs, int rs,
+    int ms, int fs, const float* u0, float* u, float* gap, float* lam,
+    float* scr, int B, int H, int iters, float dt) {
+  const Args a{x0, xref, A, Bm, contact, qw, rw, mu, fz, u0, u, gap, lam,
+               scr, qs, rs, ms, fs, B, H, iters, dt};
+  const bool smem = H <= SMEM_MAX_H;
+  const int wpb = smem ? WARPS_SMEM : WARPS_GLOBAL;
+  run_blocks((B + wpb - 1) / wpb, 32 * wpb, [&]() {
+    if (smem) riccati_ipm_kernel<true>(a);
+    else riccati_ipm_kernel<false>(a);
+  });
 }
 """
 
@@ -293,3 +321,81 @@ def test_k7_emulated_matches_plain(libs):
                       ("cost", 2e-3)):
         assert float(err[name].max()) <= tol, name
     assert bool(torch.isfinite(U).all())
+
+
+@pytest.fixture(scope="module")
+def riccati_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ (C++20) to compile the CUDA sources for the "
+                    "CPU")
+    lib = _emulated("riccati_ipm", RICCATI_LAUNCH,
+                    tmp_path_factory.mktemp("emulated_k1"), edits=(
+        ("extern __shared__ float4 smem4[];", "static float4 smem4[4096];"),))
+    lib.riccati_ipm_emu.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 3 + [ctypes.c_float])
+    return lib
+
+
+@pytest.fixture(scope="module")
+def trot3():
+    """A Go1 batch of 3 after 20 standing and 6 trotting ticks (CPU,
+    float32, the plain solver)."""
+    f32 = torch.float32
+    params = go1_params(f32, "cpu")
+    pattern = gait.trot_pattern(f32, "cpu")
+    loop = runner.init_loop_batch(params, 3, torch.Generator().manual_seed(3),
+                                  dtype=f32, body_height=0.28, device="cpu")
+    loop, _ = runner.make_batched_rollout(
+        pattern, n_ticks=26, pdip_iters=4, walk_velx=0.15,
+        stand_ticks=20)(loop, params)
+    return loop, step.broadcast_params(params, 3), pattern
+
+
+# H=10 keeps K1's per-stage store in shared memory, H=13 in device scratch
+@pytest.mark.parametrize("horizon,start", [(10, "cold"), (10, "warm"),
+                                           (13, "cold"), (13, "warm")])
+def test_k1_emulated_matches_plain(riccati_lib, trot3, horizon, start):
+    """K1 on the QP of the port's own `mpc_prepare` (cold, or warm from the
+    shifted plain solution, as the loop calls it) against the plain
+    float32 version, with float64 as the exact reference."""
+    loop, params, pattern = trot3
+    _, stage = convex_mpc.mpc_prepare(loop.controller, params, pattern,
+                                      0.01, horizon=horizon)
+    args = (stage.x0, stage.x_ref, stage.A_seq, stage.B, stage.contact,
+            stage.q_weights, stage.r_weights, stage.mu, stage.fz_max, 0.01)
+    iters = 15 if start == "cold" else 4
+    warm_u = None
+    if start == "warm":
+        warm_u = riccati.warm_shift(
+            riccati.solve_qp_riccati_batched(*args, iters=15)[0],
+            stage.contact)
+    Bn, H = stage.x_ref.shape[:2]
+    ins = [x.contiguous() for x in (stage.x0, stage.x_ref, stage.A_seq,
+                                    stage.B, stage.contact, stage.q_weights,
+                                    stage.r_weights, stage.mu,
+                                    stage.fz_max)]
+    u, gap = torch.empty((Bn, 12 * H)), torch.empty(Bn)
+    lam = torch.empty((Bn, H, 4, 6))
+    scr = torch.empty((Bn, riccati_lib.riccati_ipm_scratch_emu(H)))
+    riccati_lib.riccati_ipm_emu(
+        *[x.data_ptr() for x in ins], 12, 12, 1, 1,
+        None if warm_u is None else warm_u.contiguous().data_ptr(),
+        u.data_ptr(), gap.data_ptr(), lam.data_ptr(), scr.data_ptr(), Bn, H,
+        iters, 0.01)
+    up, gp, lp = riccati.solve_qp_riccati_batched(*args, iters=iters,
+                                                  warm_u=warm_u)
+    u64 = riccati.solve_qp_riccati_batched(
+        *(a.double() if torch.is_tensor(a) else a for a in args),
+        iters=iters, warm_u=None if warm_u is None else warm_u.double())[0]
+    d = (u - up).abs().amax(-1)
+    e64 = float((u.double() - u64).abs().max())
+    p64 = float((up.double() - u64).abs().max())
+    print(f"H={H} {start}: max|u - u_plain| {float(d.max()):.3e} N; vs "
+          f"float64 {e64:.3e} N (plain {p64:.3e}); gap {gap.tolist()} "
+          f"(plain {gp.tolist()})")
+    assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(lam).all())
+    assert float(torch.quantile(d.double(), 0.99)) <= 2e-2
+    assert e64 <= 1.5 * p64 + 2e-2
+    if start == "cold":
+        assert float(gap.max()) < 1e-4
