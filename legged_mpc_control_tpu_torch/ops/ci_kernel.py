@@ -16,6 +16,10 @@ stage references, refT (B,24), f_mask (B,H,4), rho0 (B,), wts_vec (52,) =
 [c_fb, c_slip, c_cone, c_mask] + the 48-dim tracking diagonal 2 q, mu and
 mass scalars, Iw_inv (B,3,3). Returns (Uh (B,H,24) scaled, Z (B,H+1,24),
 cost (B,)).
+
+The kernel keeps a scenario's whole problem in its block's shared memory,
+so it serves 1 <= H <= `max_horizon()` (50 on an H100); the dispatch
+(`mpc/ci_mpc.ci_pallas_available`) sends it H <= 12.
 """
 
 import ctypes
@@ -50,10 +54,16 @@ def ci_sweeps_plain(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass,
 def _lib():
     lib = cuda_build.load("ci_sweeps")
     lib.ci_sweeps_launch.argtypes = (
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
         + [ctypes.c_void_p])
     lib.ci_sweeps_launch.restype = ctypes.c_int
+    lib.ci_sweeps_max_h.restype = ctypes.c_int
     return lib
+
+
+def max_horizon():
+    """The largest H kernel K7 serves (its shared memory a block)."""
+    return _lib().ci_sweeps_max_h()
 
 
 def ci_sweeps_cuda(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass,
@@ -85,6 +95,9 @@ def ci_sweeps_cuda(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass,
     if dev.type != "cuda":
         raise ValueError(f"z0: tensor on {dev}, want cuda (or cpu for the "
                          "plain version)")
+    if not 1 <= H <= max_horizon():
+        raise ValueError(f"Uh0: horizon {H}; kernel K7 serves 1 <= H <= "
+                         f"{max_horizon()} (its shared memory a block)")
     z0, Uh0, ref_zu, refT, f_mask, rho0, Iw_inv = (
         t.contiguous() for t in (z0, Uh0, ref_zu, refT, f_mask, rho0,
                                  Iw_inv))
@@ -92,15 +105,12 @@ def ci_sweeps_cuda(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass,
     U = torch.empty((B, H, NZ), dtype=torch.float32, device=dev)
     Z = torch.empty((B, H + 1, NZ), dtype=torch.float32, device=dev)
     cost = torch.empty((B,), dtype=torch.float32, device=dev)
-    kff = torch.empty((B, H, NZ), dtype=torch.float32, device=dev)
-    K = torch.empty((B, H, NZ, NZ), dtype=torch.float32, device=dev)
     err = _lib().ci_sweeps_launch(
         z0.data_ptr(), Uh0.data_ptr(), ref_zu.data_ptr(), refT.data_ptr(),
         f_mask.data_ptr(), rho0.data_ptr(), Iw_inv.data_ptr(),
-        misc.data_ptr(), U.data_ptr(), Z.data_ptr(), cost.data_ptr(),
-        kff.data_ptr(), K.data_ptr(), B, H, int(iters), float(dt),
-        float(s_f), float(rho_min), float(reg), float(state_reg),
-        torch.cuda.current_stream(dev).cuda_stream)
+        misc.data_ptr(), U.data_ptr(), Z.data_ptr(), cost.data_ptr(), B, H,
+        int(iters), float(dt), float(s_f), float(rho_min), float(reg),
+        float(state_reg), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "ci_sweeps")
     cuda_build.LAUNCHES["ci_sweeps"] += 1
     return U, Z, cost

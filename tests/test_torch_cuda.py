@@ -268,7 +268,7 @@ def test_chol_solve_multi_matches_plain(dev):
         chol_kernel.cho_solve_multi_cuda(F.double(), R.double())
 
 
-def _ci_walked(dev, batch, terrain=None, ticks=6, iters=24):
+def _ci_walked(dev, batch, terrain=None, ticks=6, iters=24, horizon=10):
     """An A1 batch walking the CI closed loop for a few ticks on the card,
     and the policy."""
     from legged_mpc_control_tpu_torch.config import a1_params
@@ -276,7 +276,8 @@ def _ci_walked(dev, batch, terrain=None, ticks=6, iters=24):
 
     params = a1_params(F32, dev)
     walk = ci_mpc.make_ci_walk_policy_batched(params, terrain=terrain,
-                                              velx=0.1, iters=iters)
+                                              velx=0.1, iters=iters,
+                                              horizon=horizon)
     stand = lci_mpc.make_stand_policy(params)
     gen = torch.Generator(device=dev).manual_seed(3)
     loop = runner.init_loop_batch(params, batch, gen, dtype=F32, device=dev)
@@ -292,41 +293,110 @@ def _ci_walked(dev, batch, terrain=None, ticks=6, iters=24):
     return loop, lci, params, stand, walk
 
 
-def test_ci_sweeps_matches_plain(dev):
-    """K7 against its plain version on the solve of a walking CI tick, with
-    the tolerances of tests/test_ci_fused.py for 99 % of the scenarios."""
+_CI_ARGS = {}
+
+
+def _ci_sweeps_args(dev, horizon):
+    """K7's arguments in the solve of a walking CI tick, B=64 (cached by
+    horizon)."""
     from legged_mpc_control_tpu_torch.mpc import ci_mpc
     from legged_mpc_control_tpu_torch.ops import ci_kernel
 
-    loop, lci, params, stand, walk = _ci_walked(dev, 64)
-    seen = {}
-    kernel = ci_kernel.ci_sweeps_cuda
+    if horizon not in _CI_ARGS:
+        loop, lci, params, stand, walk = _ci_walked(dev, 64,
+                                                    horizon=horizon)
+        seen = {}
+        kernel = ci_kernel.ci_sweeps_cuda
 
-    def capture(*a, **kw):
-        seen["args"] = (a, kw)
-        return kernel(*a, **kw)
-    ci_mpc.ci_kernel.ci_sweeps_cuda = capture
-    try:
-        step.closed_loop_tick_lci_batched(loop, lci, params, stand, walk,
-                                          0.1)
-    finally:
-        ci_mpc.ci_kernel.ci_sweeps_cuda = kernel
-    a, kw = seen["args"]
-    before = cuda_build.LAUNCHES["ci_sweeps"]
-    Uk, Zk, ck = ci_kernel.ci_sweeps_cuda(*a, **kw)
-    assert cuda_build.LAUNCHES["ci_sweeps"] == before + 1
-    Up, Zp, cp = ci_kernel.ci_sweeps_plain(*a, **kw)
-    assert bool(torch.isfinite(Uk).all()) and bool(torch.isfinite(ck).all())
+        def capture(*a, **kw):
+            seen["args"] = (a, kw)
+            return kernel(*a, **kw)
+        ci_mpc.ci_kernel.ci_sweeps_cuda = capture
+        try:
+            step.closed_loop_tick_lci_batched(loop, lci, params, stand, walk,
+                                              0.1)
+        finally:
+            ci_mpc.ci_kernel.ci_sweeps_cuda = kernel
+        _CI_ARGS[horizon] = seen["args"]
+    return _CI_ARGS[horizon]
+
+
+def _ci_outside(got, want):
+    """Scenarios outside the tolerances of tests/test_ci_fused.py."""
+    (Uk, Zk, ck), (Up, Zp, cp) = got, want
 
     def per(x, y):
         return (x - y).abs().reshape(x.shape[0], -1).amax(-1)
-    out = ((per(50.0 * Uk[..., :12], 50.0 * Up[..., :12]) > 0.5)
-           | (per(Uk[..., 12:], Up[..., 12:]) > 2e-2)
-           | (per(Zk, Zp) > 2e-3) | ((ck - cp).abs() > 2e-3 * cp.abs()))
-    assert int(out.sum()) <= 0.01 * Uk.shape[0]
+    return ((per(50.0 * Uk[..., :12], 50.0 * Up[..., :12]) > 0.5)
+            | (per(Uk[..., 12:], Up[..., 12:]) > 2e-2)
+            | (per(Zk, Zp) > 2e-3) | ((ck - cp).abs() > 2e-3 * cp.abs()))
+
+
+# H=12 is the largest horizon the dispatch sends K7; B=1 leaves one block
+@pytest.mark.parametrize("horizon", [10, 12])
+@pytest.mark.parametrize("batch", [1, 64])
+def test_ci_sweeps_matches_plain(dev, batch, horizon):
+    """K7 against its plain version on the solve of a walking CI tick, with
+    the tolerances of tests/test_ci_fused.py for 99 % of the scenarios."""
+    from legged_mpc_control_tpu_torch.ops import ci_kernel
+
+    a, kw = _ci_sweeps_args(dev, horizon)
+    a = tuple(x[:batch] if torch.is_tensor(x) and x.dim() and
+              x.shape[0] == 64 else x for x in a)
+    assert a[1].shape[:2] == (batch, horizon)
+    before = cuda_build.LAUNCHES["ci_sweeps"]
+    Uk, Zk, ck = ci_kernel.ci_sweeps_cuda(*a, **kw)
+    assert cuda_build.LAUNCHES["ci_sweeps"] == before + 1
+    plain = ci_kernel.ci_sweeps_plain(*a, **kw)
+    assert bool(torch.isfinite(Uk).all()) and bool(torch.isfinite(ck).all())
+    assert int(_ci_outside((Uk, Zk, ck), plain).sum()) <= 0.01 * batch
     with pytest.raises(TypeError):
         ci_kernel.ci_sweeps_cuda(*(x.double() if torch.is_tensor(x) else x
                                    for x in a), **kw)
+
+
+def test_ci_sweeps_all_nonfinite_keeps_nominal(dev):
+    """A NaN in scenario 1's input reference at stage 5 makes all its five
+    candidates cost NaN: it keeps its nominal (the warm start and its
+    rollout, the kernel's own at iters=0) with cost inf, as the plain
+    version does; the other scenarios match plain."""
+    from legged_mpc_control_tpu_torch.ops import ci_kernel
+
+    a, kw = _ci_sweeps_args(dev, 10)
+    ref_zu = a[2].clone()
+    ref_zu[1, 5, 24] = float("nan")
+    a = a[:2] + (ref_zu,) + a[3:]
+    Uk, Zk, ck = ci_kernel.ci_sweeps_cuda(*a, **kw)
+    Up, Zp, cp = ci_kernel.ci_sweeps_plain(*a, **kw)
+    rollout = ci_kernel.ci_sweeps_cuda(*a, **dict(kw, iters=0))[1]
+    assert torch.equal(Up[1], a[1][1]) and bool(torch.isinf(cp[1]))
+    assert torch.equal(Uk[1], a[1][1]) and bool(torch.isinf(ck[1]))
+    assert torch.equal(Zk[1], rollout[1])
+    assert float((Zk[1] - Zp[1]).abs().max()) <= 2e-3
+    rest = torch.arange(64, device=dev) != 1
+    out = _ci_outside((Uk[rest], Zk[rest], ck[rest]),
+                      (Up[rest], Zp[rest], cp[rest]))
+    assert int(out.sum()) <= 0.01 * 63
+
+
+def test_ci_sweeps_refuses_horizon_above_cap(dev):
+    """K7 holds a scenario in its block's shared memory: a horizon beyond
+    the cap raises ValueError and names it."""
+    from legged_mpc_control_tpu_torch.ops import ci_kernel
+
+    a, kw = _ci_sweeps_args(dev, 10)
+    cap = ci_kernel.max_horizon()
+    assert 12 <= cap < 100
+    H = cap + 1
+
+    def stretch(x):                       # stage axis 1 to H stages
+        return x[:2, :1].expand(2, H, *x.shape[2:]).contiguous()
+    b = (a[0][:2], stretch(a[1]), stretch(a[2]), a[3][:2], stretch(a[4]),
+         a[5][:2]) + a[6:9] + (a[9][:2],)
+    before = cuda_build.LAUNCHES["ci_sweeps"]
+    with pytest.raises(ValueError, match=f"H <= {cap}"):
+        ci_kernel.ci_sweeps_cuda(*b, **dict(kw, iters=1))
+    assert cuda_build.LAUNCHES["ci_sweeps"] == before
 
 
 def test_ci_dispatch_launches(dev):

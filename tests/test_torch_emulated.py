@@ -3,18 +3,23 @@ and run against their plain PyTorch versions: a check of the kernels'
 arithmetic where there is no card.
 
 The sources are built with g++ under a small emulation of the CUDA
-constructs they use: a block's threads are std::threads, `__syncthreads`
-one std::barrier of the block and `__syncwarp` one of the warp (a thread
-that returns drops out of both, as an exited thread does on the card),
-`__all_sync`, `__shfl_xor_sync` and `__shfl_sync` an exchange through
-memory within the warp, `__shared__` a static. The
+constructs they use: a block's threads are fibers (ucontext) run in
+turn on one host thread, `__syncthreads` a barrier of the block and
+`__syncwarp` one of the warp (a thread that returns drops out of both, as
+an exited thread does on the card), `__all_sync`, `__shfl_xor_sync` and
+`__shfl_sync` an exchange through memory within the warp (the shuffles
+through two buffers in turn, one barrier each), `__syncthreads_and` one through memory within the
+block, `__shared__` a static (a kernel's dynamic `extern __shared__` array
+is edited into a static one). The
 `extern "C"` launchers (CUDA's `<<<>>>` syntax) are cut off and replaced by
 launchers that run the blocks in turn. Float32 on both sides, so the
 comparison uses the tolerances of the card's check (chip_smoke.py): K1 its
 2e-2 N GRF bracket and the float64 rule, K4 and K6 relative 1e-5, K7 the
 TPU kernel's bracket against XLA
-(tests/test_ci_fused.py:49-56). Skipped where there is no g++ with
-C++20."""
+(tests/test_ci_fused.py:49-56). K7 runs a block of 192 threads a
+scenario; its cases are the walked-in tick at H=10 and at H=12 (the
+largest horizon the dispatch sends it), and a scenario whose candidates
+all cost NaN. Skipped where there is no g++ with C++20."""
 
 import ctypes
 import shutil
@@ -40,15 +45,17 @@ from legged_mpc_control_tpu_torch.parallel import runner
 torch.set_num_threads(1)
 
 PRELUDE = r"""
-#include <barrier>
+#include <ucontext.h>
 #include <cmath>
 #include <cstddef>
+#include <cstdio>
+#include <cstdlib>
+#include <deque>
 #include <functional>
-#include <memory>
-#include <thread>
 #include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __constant__
 #define __shared__ static
@@ -58,8 +65,7 @@ PRELUDE = r"""
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 struct Dim { int x; };
-thread_local Dim threadIdx, blockIdx;
-Dim blockDim;
+Dim threadIdx, blockIdx, blockDim;      // the running thread's
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorInvalidDevice = 101,
@@ -67,56 +73,105 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 template <class T>
 cudaError_t cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
-static std::barrier<>* g_bar = nullptr;                  // the block's
-static std::vector<std::unique_ptr<std::barrier<>>> g_warp_bar;  // a warp's
-static float g_xchg[1024];
+// A block's threads are fibers (ucontext) on one host thread; a thread runs
+// until it waits at a barrier, the last to arrive releases the others.
+struct Fiber { ucontext_t ctx; std::vector<char> stack; int tid; int turn; };
+static ucontext_t g_sched;
+static Fiber* g_cur = nullptr;
+static std::deque<Fiber*> g_ready;
+struct Barrier {
+  int n = 0, arrived = 0;
+  std::vector<Fiber*> waiting;
+  void release() {
+    for (Fiber* f : waiting) g_ready.push_back(f);
+    waiting.clear();
+    arrived = 0;
+  }
+  void wait() {
+    if (++arrived == n) { release(); return; }
+    waiting.push_back(g_cur);
+    swapcontext(&g_cur->ctx, &g_sched);
+  }
+  void drop() {                         // a thread that returned
+    --n;
+    if (arrived > 0 && arrived == n) release();
+  }
+};
+static Barrier g_bar;                   // the block's
+static std::vector<Barrier> g_warp_bar; // a warp's
 static int g_pred[1024];
-inline std::barrier<>& warp_bar() { return *g_warp_bar[threadIdx.x / 32]; }
-inline void __syncwarp() { warp_bar().arrive_and_wait(); }
-inline void __syncthreads() { g_bar->arrive_and_wait(); }
+inline Barrier& warp_bar() { return g_warp_bar[threadIdx.x / 32]; }
+inline void __syncwarp() { warp_bar().wait(); }
+inline void __syncthreads() { g_bar.wait(); }
+inline int __syncthreads_and(int p) {
+  g_pred[threadIdx.x] = p;
+  g_bar.wait();
+  bool all = true;
+  for (int i = 0; i < blockDim.x; ++i) all = all && g_pred[i];
+  g_bar.wait();
+  return all;
+}
 inline bool __all_sync(unsigned, bool p) {
   g_pred[threadIdx.x] = p;
-  warp_bar().arrive_and_wait();
+  warp_bar().wait();
   bool all = true;
   for (int i = threadIdx.x & ~31; i < (threadIdx.x | 31) + 1; ++i)
     all = all && g_pred[i];
-  warp_bar().arrive_and_wait();
+  warp_bar().wait();
   return all;
 }
-inline float __shfl_xor_sync(unsigned, float x, int o) {
-  g_xchg[threadIdx.x] = x;
-  warp_bar().arrive_and_wait();
-  const float y = g_xchg[threadIdx.x ^ o];
-  warp_bar().arrive_and_wait();
-  return y;
-}
+// two exchange buffers used in turn: a lane writes the next one while a
+// slower lane may still read this one, and one barrier a shuffle suffices
+static float g_xchg[2][1024];
 inline float __shfl_sync(unsigned, float x, int src) {
-  g_xchg[threadIdx.x] = x;
-  warp_bar().arrive_and_wait();
-  const float y = g_xchg[(threadIdx.x & ~31) | src];
-  warp_bar().arrive_and_wait();
-  return y;
+  float* buf = g_xchg[g_cur->turn ^= 1];
+  buf[threadIdx.x] = x;
+  warp_bar().wait();
+  return buf[(threadIdx.x & ~31) | src];
+}
+inline float __shfl_xor_sync(unsigned m, float x, int o) {
+  return __shfl_sync(m, x, (threadIdx.x ^ o) & 31);
 }
 using std::isfinite;
+static std::function<void()>* g_body;
+static void fiber_main() {
+  (*g_body)();
+  g_bar.drop();
+  warp_bar().drop();
+}
 static void run_blocks(int B, int T, std::function<void()> body) {
   blockDim.x = T;
+  g_body = &body;
+  std::vector<Fiber> fibers(T);
+  for (auto& f : fibers) f.stack.resize(1 << 18);
   for (int b = 0; b < B; ++b) {
-    std::barrier<> bar(T);
-    g_bar = &bar;
-    g_warp_bar.clear();
+    blockIdx.x = b;
+    g_bar = Barrier{T};
+    g_warp_bar.assign((T + 31) / 32, Barrier{});
     for (int w = 0; w * 32 < T; ++w)
-      g_warp_bar.emplace_back(new std::barrier<>(T - 32 * w < 32 ? T - 32 * w
-                                                                  : 32));
-    std::vector<std::thread> th;
-    for (int t = 0; t < T; ++t)
-      th.emplace_back([=]() {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        body();
-        g_bar->arrive_and_drop();
-        warp_bar().arrive_and_drop();
-      });
-    for (auto& x : th) x.join();
+      g_warp_bar[w].n = T - 32 * w < 32 ? T - 32 * w : 32;
+    for (int t = 0; t < T; ++t) {
+      Fiber& f = fibers[t];
+      f.tid = t;
+      f.turn = 0;
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = f.stack.data();
+      f.ctx.uc_stack.ss_size = f.stack.size();
+      f.ctx.uc_link = &g_sched;
+      makecontext(&f.ctx, fiber_main, 0);
+      g_ready.push_back(&f);
+    }
+    while (!g_ready.empty()) {
+      g_cur = g_ready.front();
+      g_ready.pop_front();
+      threadIdx.x = g_cur->tid;
+      // back here when the fiber waits at a barrier or has returned
+      swapcontext(&g_sched, &g_cur->ctx);
+    }
+    if (g_bar.n != 0) {                 // a thread still waits
+      std::fprintf(stderr, "emulation: block %d deadlocked\n", b);
+      std::abort();
+    }
   }
 }
 """
@@ -125,11 +180,11 @@ CI_LAUNCH = r"""
 extern "C" void ci_sweeps_emu(const float* z0, const float* uh0,
     const float* ref_zu, const float* refT, const float* f_mask,
     const float* rho0, const float* iw_inv, const float* misc, float* U,
-    float* Z, float* cost, float* kff, float* K, int B, int H, int iters,
-    float dt, float s_f, float rho_min, float reg, float state_reg) {
-  Args p{z0, uh0, ref_zu, refT, f_mask, rho0, iw_inv, misc, U, Z, cost, kff,
-         K, H, iters, dt, s_f, rho_min, reg, state_reg};
-  run_blocks(B, 32, [&]() { ci_sweeps(p); });
+    float* Z, float* cost, int B, int H, int iters, float dt, float s_f,
+    float rho_min, float reg, float state_reg) {
+  Args p{z0, uh0, ref_zu, refT, f_mask, rho0, iw_inv, misc, U, Z, cost, H,
+         iters, dt, s_f, rho_min, reg, state_reg};
+  run_blocks(B, NT, [&]() { ci_sweeps(p); });
 }
 """
 
@@ -200,10 +255,11 @@ def libs(tmp_path_factory):
         pytest.skip("needs g++ (C++20) to compile the CUDA sources for the "
                     "CPU")
     out = tmp_path_factory.mktemp("emulated")
-    ci = _emulated("ci_sweeps", CI_LAUNCH, out)
-    ci.ci_sweeps_emu.argtypes = ([ctypes.c_void_p] * 13
-                                 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5)
     # the kernels' dynamic (extern) shared arrays: static buffers here
+    ci = _emulated("ci_sweeps", CI_LAUNCH, out, edits=(
+        ("extern __shared__ float4 smem4[];", "static float4 smem4[8192];"),))
+    ci.ci_sweeps_emu.argtypes = ([ctypes.c_void_p] * 11
+                                 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5)
     chol = _emulated("chol_lanes", CHOL_LAUNCH, out, edits=(
         ("extern __shared__ float sm[];", "static float sm[16384];"),))
     chol.chol_solve_multi_emu.argtypes = [ctypes.c_void_p] * 3 + [
@@ -261,21 +317,21 @@ def test_k6_emulated_matches_plain(libs):
     assert float((X - Xp).abs().max() / Xp.abs().max()) < 1e-5
 
 
-def test_k7_emulated_matches_plain(libs):
-    """K7 on the solve of a walked-in flat CI tick (A1, B=4, 6 ticks of 24
-    sweeps), against its plain version in float32 and float64."""
-    ci, _ = libs
+def _ci_tick_args(batch, horizon=10):
+    """K7's arguments (float32, CPU) in the solve of a walked-in flat CI
+    tick: A1, `batch` scenarios, 6 ticks of 24 sweeps, then the 7th's."""
     f32 = torch.float32
     p = a1_params(f32, "cpu")
-    B = 4
-    walk = ci_mpc.make_ci_walk_policy_batched(p, velx=0.1, iters=24)
+    walk = ci_mpc.make_ci_walk_policy_batched(p, velx=0.1, iters=24,
+                                              horizon=horizon)
     stand = lci_mpc.make_stand_policy(p)
-    loop = runner.init_loop_batch(p, B, torch.Generator().manual_seed(0),
+    loop = runner.init_loop_batch(p, batch, torch.Generator().manual_seed(0),
                                   dtype=f32, device="cpu")
     cs = loop.controller
     loop = loop.replace(controller=cs.replace(ctrl=cs.ctrl.replace(
-        movement_mode=torch.ones(B, dtype=torch.int32))))
-    lci = lci_mpc.lci_init_batched(B, f32, walk.warm_init(B, f32, "cpu"),
+        movement_mode=torch.ones(batch, dtype=torch.int32))))
+    lci = lci_mpc.lci_init_batched(batch, f32,
+                                   walk.warm_init(batch, f32, "cpu"),
                                    device="cpu")
     for k in range(6):
         loop, lci = step.closed_loop_tick_lci_batched(loop, lci, p, stand,
@@ -292,35 +348,96 @@ def test_k7_emulated_matches_plain(libs):
     finally:
         ci_mpc.ci_kernel.ci_sweeps_cuda = plain
     a, kw = seen["args"]
-    z0, Uh0, ref_zu, refT, f_mask, rho0, wvec, mu, mass, Iw_inv = (
-        x.contiguous() for x in a)
-    H = Uh0.shape[1]
+    return tuple(x.contiguous() for x in a), kw
+
+
+@pytest.fixture(scope="module")
+def ci_tick4():
+    return _ci_tick_args(4)
+
+
+def _k7_emulated(ci, a, kw):
+    z0, Uh0, ref_zu, refT, f_mask, rho0, wvec, mu, mass, Iw_inv = a
+    B, H = Uh0.shape[:2]
     misc = torch.cat([wvec, mu.reshape(1), mass.reshape(1)])
     U, Z = torch.empty((B, H, 24)), torch.empty((B, H + 1, 24))
     cost = torch.empty(B)
-    kff, K = torch.empty((B, H, 24)), torch.empty((B, H, 24, 24))
     ci.ci_sweeps_emu(
         z0.data_ptr(), Uh0.data_ptr(), ref_zu.data_ptr(), refT.data_ptr(),
         f_mask.data_ptr(), rho0.data_ptr(), Iw_inv.data_ptr(),
-        misc.data_ptr(), U.data_ptr(), Z.data_ptr(), cost.data_ptr(),
-        kff.data_ptr(), K.data_ptr(), B, H, kw["iters"], kw["dt"],
-        kw["s_f"], kw["rho_min"], kw["reg"], kw["state_reg"])
-    Up, Zp, cp = ci_kernel.ci_sweeps_plain(*a, **kw)
-    U64, Z64, _ = ci_kernel.ci_sweeps_plain(
-        *(x.double() for x in a), **kw)
+        misc.data_ptr(), U.data_ptr(), Z.data_ptr(), cost.data_ptr(), B, H,
+        kw["iters"], kw["dt"], kw["s_f"], kw["rho_min"], kw["reg"],
+        kw["state_reg"])
+    return U, Z, cost
+
+
+def _k7_errors(got, want):
+    """Per-scenario errors keyed as chip_smoke.py's K7_TOL."""
+    (U, Z, cost), (Up, Zp, cp) = got, want
+    B = U.shape[0]
 
     def per(x, y):
         return (x.double() - y.double()).abs().reshape(B, -1).amax(-1)
-    err = {"forces": 50.0 * per(U[..., :12], Up[..., :12]),
-           "foot_vel": per(U[..., 12:], Up[..., 12:]), "Z": per(Z, Zp),
-           "cost": (cost - cp).abs() / cp.abs()}
+    return {"forces": 50.0 * per(U[..., :12], Up[..., :12]),
+            "foot_vel": per(U[..., 12:], Up[..., 12:]), "Z": per(Z, Zp),
+            "cost": (cost - cp).abs() / cp.abs()}
+
+
+K7_TOL = (("forces", 0.5), ("foot_vel", 2e-2), ("Z", 2e-3), ("cost", 2e-3))
+
+
+def _k7_against_plain(ci, a, kw):
+    """K7 emulated against its plain version in float32 (the bracket, every
+    scenario) and float64 (printed)."""
+    got = _k7_emulated(ci, a, kw)
+    err = _k7_errors(got, ci_kernel.ci_sweeps_plain(*a, **kw))
+    U64 = ci_kernel.ci_sweeps_plain(*(x.double() for x in a), **kw)[0]
+    f64 = 50.0 * (got[0][..., :12].double() - U64[..., :12]).abs().max()
     print({k: float(v.max()) for k, v in err.items()},
-          "forces vs float64:", float(50.0 * per(U[..., :12],
-                                                 U64[..., :12]).max()))
-    for name, tol in (("forces", 0.5), ("foot_vel", 2e-2), ("Z", 2e-3),
-                      ("cost", 2e-3)):
+          "forces vs float64:", float(f64))
+    for name, tol in K7_TOL:
         assert float(err[name].max()) <= tol, name
-    assert bool(torch.isfinite(U).all())
+    assert bool(torch.isfinite(got[0]).all())
+
+
+def test_k7_emulated_matches_plain(libs, ci_tick4):
+    """K7 on the solve of a walked-in flat CI tick (A1, B=4, 6 ticks of 24
+    sweeps), against its plain version in float32 and float64."""
+    ci, _ = libs
+    _k7_against_plain(ci, *ci_tick4)
+
+
+def test_k7_emulated_horizon_12(libs):
+    """The same at H=12, the largest horizon the dispatch sends K7 (B=2)."""
+    ci, _ = libs
+    a, kw = _ci_tick_args(2, horizon=12)
+    assert a[1].shape[1] == 12
+    _k7_against_plain(ci, a, kw)
+
+
+def test_k7_emulated_all_nonfinite_keeps_nominal(libs, ci_tick4):
+    """A NaN in scenario 1's input reference at stage 5 makes all its five
+    candidates cost NaN: it keeps its nominal (the warm start and its
+    rollout) with cost inf, as the plain version does; the other scenarios
+    match plain (tests/test_torch_ci.py's all-non-finite case, 2 sweeps)."""
+    ci, _ = libs
+    a, kw = ci_tick4
+    kw = dict(kw, iters=2)
+    ref_zu = a[2].clone()
+    ref_zu[1, 5, 24] = float("nan")
+    a = a[:2] + (ref_zu,) + a[3:]
+    U, Z, cost = _k7_emulated(ci, a, kw)
+    Up, Zp, cp = ci_kernel.ci_sweeps_plain(*a, **kw)
+    assert torch.equal(Up[1], a[1][1]) and bool(torch.isinf(cp[1]))
+    assert torch.equal(U[1], a[1][1]) and bool(torch.isinf(cost[1]))
+    rollout = _k7_emulated(ci, a, dict(kw, iters=0))[1]
+    assert torch.equal(Z[1], rollout[1])
+    assert float((Z[1] - Zp[1]).abs().max()) <= 2e-3
+    keep = torch.tensor([0, 2, 3])
+    err = _k7_errors((U[keep], Z[keep], cost[keep]),
+                     (Up[keep], Zp[keep], cp[keep]))
+    for name, tol in K7_TOL:
+        assert float(err[name].max()) <= tol, name
 
 
 @pytest.fixture(scope="module")

@@ -45,9 +45,10 @@ TICKS = 10
 
 
 @contextlib.contextmanager
-def spans():
-    """Each layer wrapped in a torch.profiler.record_function span."""
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in LAYERS]
+def spans(layers):
+    """Each of `layers` ((module, attribute, span name)) wrapped in a
+    torch.profiler.record_function span."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in layers]
 
     def wrap(fn, label):
         def inner(*a, **kw):
@@ -55,7 +56,7 @@ def spans():
                 return fn(*a, **kw)
         return inner
 
-    for (mod, name, fn), (_, _, label) in zip(saved, LAYERS):
+    for (mod, name, fn), (_, _, label) in zip(saved, layers):
         setattr(mod, name, wrap(fn, label))
     try:
         yield
@@ -86,18 +87,28 @@ def main():
 
     walked = make(30, 20)(loop, params)[0]
     roll = make(TICKS, 0)
-    roll(walked, params)                            # warm-up
+    profile(lambda: roll(walked, params), LAYERS, TICKS,
+            f"kf_type {args.kf_type}, B={B}, {TICKS} ticks", "tick",
+            scenarios=B)
+
+
+def profile(run, layers, n, what, unit, scenarios=None):
+    """Run `run` once to warm up, then once under torch.profiler with
+    `layers` in spans; print the host-clock time a `unit` (run does n),
+    each span's host time, the device time by kernel and the device's idle
+    share."""
+    run()                                           # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with spans(), torch.profiler.profile(activities=acts) as prof:
+    with spans(layers), torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        roll(walked, params)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    tick_ms = wall * 1e3 / TICKS
+    unit_ms = wall * 1e3 / n
 
-    host = {label: 0.0 for _, _, label in LAYERS}
+    host = {label: 0.0 for _, _, label in layers}
     kernels = {}
     busy_us = 0.0
     for e in prof.events():
@@ -113,19 +124,20 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(f"kf_type {args.kf_type}, B={B}, {TICKS} ticks ({card}): "
-          f"{tick_ms:.3f} ms a tick (host clock, profiler on); "
-          f"{B * 1e3 / tick_ms:.1f} scenario-ticks/s")
-    print("host time a tick, by span:")
+    rate = (f"; {scenarios * 1e3 / unit_ms:.1f} scenario-ticks/s"
+            if scenarios else "")
+    print(f"{what} ({card}): {unit_ms:.3f} ms a {unit} (host clock, "
+          f"profiler on){rate}")
+    print(f"host time a {unit}, by span:")
     for label, us in host.items():
-        print(f"   {label:26s} {us / 1e3 / TICKS:8.3f} ms")
-    print(f"device time a tick: {busy_us / 1e3 / TICKS:.3f} ms; device idle "
+        print(f"   {label:26s} {us / 1e3 / n:8.3f} ms")
+    print(f"device time a {unit}: {busy_us / 1e3 / n:.3f} ms; device idle "
           f"share {1.0 - busy_us / (wall * 1e6):.3f}")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])
     for name, us in top[:6]:
-        print(f"   {us / 1e3 / TICKS:8.3f} ms  {name[:90]}")
+        print(f"   {us / 1e3 / n:8.3f} ms  {name[:90]}")
     rest = sum(us for _, us in top[6:])
-    print(f"   {rest / 1e3 / TICKS:8.3f} ms  the other {len(top) - 6} "
+    print(f"   {rest / 1e3 / n:8.3f} ms  the other {len(top) - 6} "
           "device operations")
 
 
