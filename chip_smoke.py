@@ -4,10 +4,11 @@
 
 Builds every hand-written CUDA kernel of the port from
 legged_mpc_control_tpu_torch/csrc with nvcc (sm_90a, one nvcc per source,
-all at once; K1's two and K4's three variants and K7 must show no stack
-frame and no spills), holds each against its plain PyTorch version at its path's
-shapes (K1 at H=10 and H=30, and at the loop's own call, iters=4 warm; K4
-at n=120 with B=4096 and B=1, n=360, n=24), then drives the paths of the
+all at once; K1's two, K4's three and K5/K6's five variants and K7 must
+show no stack frame and no spills), holds each against its plain PyTorch
+version at its path's shapes (K1 at H=10 and H=30, and at the loop's own
+call, iters=4 warm; K4 and K5 at n=120 with B=4096 and B=1, n=360, n=24
+(K4)), then drives the paths of the
 batched Go1 trot closed loop (`parallel/runner.make_batched_rollout`)
 through their quality gates and times them at B=4096: Riccati with kf_type
 0 (kernels K1, K2) and 1 (K1, K3), and the condensed PDIP and ADMM solvers
@@ -222,9 +223,15 @@ K4_VARIANTS = ("chol_factor_small", "chol_factor_mid", "chol_factor_large")
 # K1's instantiations by the place of its per-stage store (mangled
 # riccati_ipm_kernel<true> / <false>, csrc/riccati_ipm.cu)
 K1_VARIANTS = ("riccati_ipm_kernelILb1E", "riccati_ipm_kernelILb0E")
+# K5's three variants (staged triangle, streamed rows, the ring for any n)
+# and K6's two (X in registers at n=24, in shared memory otherwise),
+# csrc/chol_lanes.cu
+K56_VARIANTS = ("chol_solve_tri", "chol_solve_stream", "chol_solve_ring",
+                "chol_solve_multi_regs", "chol_solve_multi_smem")
 # sources whose every kernel must build with no stack frame and no spills
 GATED = {"riccati_ipm": ("K1", K1_VARIANTS),
          "chol_factor": ("K4", K4_VARIANTS),
+         "chol_lanes": ("K5/K6", K56_VARIANTS),
          "ci_sweeps": ("K7", ("ci_sweeps",))}
 
 
@@ -801,6 +808,11 @@ def phase_chol(dev, card):
               f"({entry['bound5'][1]})", flush=True)
         stats[label] = entry
         done(t0)
+    print(f"   K5 chol_solve ({card}): " + "; ".join(
+        f"{label} (B={CHOL_CASES[label][0]}, n={12 * CHOL_CASES[label][1]}) "
+        f"{e['ms5']:.4f} ms, bound {e['bound5'][0]:.4f} ms, "
+        f"torch.cholesky_solve {e['lib5']:.4f} ms"
+        for label, e in stats.items()), flush=True)
 
     t0 = phase(f"PDIP solve with K4/K5 vs plain vs float64, B={B}, H=10, "
                "iters=15 cold")
@@ -864,14 +876,19 @@ def phase_chol(dev, card):
           f"plain {n_op}")
     done(t0)
 
-    t0 = phase("K4 contract: a non-positive pivot gives non-finite values")
-    K, _ = newton_matrices(8, 10, dev, 0, iters=1)
+    t0 = phase("K4, K5 contract: a non-positive pivot gives non-finite "
+               "values")
+    K, rhs = newton_matrices(8, 10, dev, 0, iters=1)
     K[3, 7, 7] = -1.0
     F = chol_kernel.cholesky_cuda(K)
+    x = chol_kernel.cho_solve_cuda(F, rhs)
     ok = [bool(torch.isfinite(F[i]).all()) for i in range(8)]
-    print(f"   finite per scenario: {ok}", flush=True)
+    ok5 = [bool(torch.isfinite(x[i]).all()) for i in range(8)]
+    print(f"   finite per scenario: factor {ok}, solution {ok5}", flush=True)
     check(ok == [True] * 3 + [False] + [True] * 4,
           "K4 must give non-finite values exactly where a pivot fails")
+    check(ok5 == ok, "K5 must give a non-finite solution exactly where the "
+          "factor is non-finite")
     done(t0)
     return stats
 

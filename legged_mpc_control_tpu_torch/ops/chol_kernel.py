@@ -60,6 +60,9 @@ def cho_solve_multi_plain(F, R):
 
 # K6 keeps F and X in shared memory: n (n + m) floats per block
 SOLVE_MULTI_SMEM_MAX = 232448
+# Past n = 384 K5 keeps 8 rows of F and the right-hand side in shared
+# memory: 9 n floats a block
+SOLVE_N_MAX = SOLVE_MULTI_SMEM_MAX // (9 * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,6 +128,9 @@ def cho_solve_cuda(F, b):
     B, n = F.shape[0], F.shape[-1]
     _check("F", F, (B, n, n), None)
     _check("b", b, (B, n), F.device)
+    if n > SOLVE_N_MAX:
+        raise ValueError(f"K5 holds 8 rows of F and b in shared memory: "
+                         f"n={n} > {SOLVE_N_MAX} does not fit")
     F, b = F.contiguous(), b.contiguous()
     x = torch.empty_like(b)
     err = _lib().chol_solve_launch(
@@ -133,7 +139,6 @@ def cho_solve_cuda(F, b):
     cuda_build.check(err, "chol_solve")
     cuda_build.LAUNCHES["chol_solve"] += 1
     return x
-
 
 
 def cho_solve_multi_cuda(F, R):

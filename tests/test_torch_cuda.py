@@ -251,11 +251,15 @@ def test_kf1_rollout_launches_the_kf1_chain(trotting_kf1):
 
 # --- the contact-implicit slice: K6, K7 and the CI dispatch --------------
 
-def test_chol_solve_multi_matches_plain(dev):
-    """K6 on the gain-solve shape of the CI backward pass (n=24, m=25)."""
-    K = _spd(B, 24, dev, 7)
+# (24, 25) is the gain-solve shape of the CI backward pass (X in
+# registers); (33, 40) takes the shared-memory variant, two threads' worth
+# of columns
+@pytest.mark.parametrize("n,m", [(24, 25), (33, 40)])
+def test_chol_solve_multi_matches_plain(dev, n, m):
+    """K6 against its plain version and by its residual."""
+    K = _spd(B, n, dev, 7)
     gen = torch.Generator(device=dev).manual_seed(1)
-    R = torch.randn((B, 24, 25), generator=gen, device=dev)
+    R = torch.randn((B, n, m), generator=gen, device=dev)
     F = chol_kernel.cholesky_cuda(K)
     before = cuda_build.LAUNCHES["chol_solve_multi"]
     X = chol_kernel.cho_solve_multi_cuda(F, R)
@@ -266,6 +270,121 @@ def test_chol_solve_multi_matches_plain(dev):
     assert float(r.abs().max() / R.abs().max()) < 1e-5
     with pytest.raises(TypeError):
         chol_kernel.cho_solve_multi_cuda(F.double(), R.double())
+
+
+def test_chol_solves_nonfinite_factor_stays_in_its_matrix(dev):
+    """A NaN on one factor's diagonal gives a non-finite solution in that
+    matrix alone: K5 at n=120, K6 at n=24, m=25 (the PDIP and CI stage
+    guards rely on it)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for n, m in ((120, None), (24, 25)):
+        F = chol_kernel.cholesky_cuda(_spd(5, n, dev, n))
+        F[2, n // 2, n // 2] = float("nan")
+        if m is None:
+            x = chol_kernel.cho_solve_cuda(
+                F, torch.randn((5, n), generator=gen, device=dev))
+        else:
+            x = chol_kernel.cho_solve_multi_cuda(
+                F, torch.randn((5, n, m), generator=gen, device=dev))
+        finite = torch.isfinite(x.reshape(5, -1)).all(-1).tolist()
+        assert finite == [True, True, False, True, True], (n, finite)
+
+
+def test_chol_solves_exact_redo(dev):
+    """A subnormal dividend (a right-hand side starting with one) sends a
+    warp from the fast division to its solve with IEEE divisions, a zero
+    one does not: K5 at n=120 (staged triangle) and n=360 (streamed rows,
+    redone by the ring), K6 at n=24, m=25. The solutions match the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for n, m in ((120, None), (360, None), (24, 25)):
+        F = chol_kernel.cholesky_cuda(_spd(4, n, dev, n))
+        if m is None:
+            b = torch.randn((4, n), generator=gen, device=dev)
+            b[1, 0], b[2, 0] = 1e-40, 0.0
+            x = chol_kernel.cho_solve_cuda(F, b)
+            xp = chol_kernel.cho_solve_plain(F, b)
+        else:
+            R = torch.randn((4, n, m), generator=gen, device=dev)
+            R[1, 0], R[2, 0] = 1e-40, 0.0
+            x = chol_kernel.cho_solve_multi_cuda(F, R)
+            xp = chol_kernel.cho_solve_multi_plain(F, R)
+        assert float((x - xp).abs().max() / xp.abs().max()) < 1e-5, n
+
+
+@pytest.mark.parametrize("n,m", [(120, None), (360, None), (24, 25)])
+def test_chol_solve_divisions_are_ieee(dev, n, m):
+    """With a diagonal factor the sweeps are two divisions an element,
+    x_i = (b_i / d_i) / d_i (the updates add zeros). Each matrix has its own
+    scale, 2^-100 .. 2^60 for b and 2^-30 .. 2^30 for d, and some zeros in
+    b, so most matrices take the kernels' fast division throughout and
+    those at the extremes (subnormal quotients) their solve with IEEE
+    divisions: every x equals the IEEE quotients, as torch divides on the
+    card."""
+    B = 257
+    gen = torch.Generator(device=dev).manual_seed(n)
+
+    def scaled(shape, lo, hi):
+        e = torch.randint(lo, hi, (B,) + (1,) * (len(shape) - 1),
+                          generator=gen, device=dev)
+        jitter = torch.randint(-2, 3, shape, generator=gen, device=dev)
+        mant = torch.rand(shape, generator=gen, device=dev) + 1.0
+        return torch.ldexp(mant, (e + jitter).float())
+
+    d = scaled((B, n), -30, 31)
+    F = torch.diag_embed(d)
+    if m is None:
+        b = scaled((B, n), -100, 61) * torch.where(
+            torch.rand((B, n), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+        b[::7, ::5] = 0.0
+        x = chol_kernel.cho_solve_cuda(F, b)
+        want = b / d / d
+    else:
+        b = scaled((B, n, m), -100, 61)
+        b[::7, ::5] = 0.0
+        x = chol_kernel.cho_solve_multi_cuda(F, b)
+        want = b / d[..., None] / d[..., None]
+    assert bool(torch.isfinite(want).all())
+    assert torch.equal(x, want)
+
+
+def test_chol_solve_variants_agree_bit_for_bit(dev):
+    """A factor at an address not 16-byte aligned sends K5 at n=120 to its
+    streamed variant and K6 at n=24 to its shared-memory variant: both keep
+    the sums' order, so they return the aligned launch's solution bit for
+    bit."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for n, m in ((120, None), (24, 25)):
+        F = chol_kernel.cholesky_cuda(_spd(9, n, dev, n))
+        flat = torch.empty(F.numel() + 1, device=dev)
+        F1 = flat[1:].view_as(F)
+        F1.copy_(F)
+        assert F1.data_ptr() % 16 != 0
+        if m is None:
+            b = torch.randn((9, n), generator=gen, device=dev)
+            x, x1 = (chol_kernel.cho_solve_cuda(f, b) for f in (F, F1))
+        else:
+            R = torch.randn((9, n, m), generator=gen, device=dev)
+            x, x1 = (chol_kernel.cho_solve_multi_cuda(f, R) for f in (F, F1))
+        assert torch.equal(x, x1), n
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_chol_solve_ring_any_n(dev, batch):
+    """K5 past the streamed variant's n <= 384 (its ring variant, the
+    right-hand side in shared memory): residual and plain version."""
+    n = 400
+    K = _spd(batch, n, dev, n)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b = torch.randn((batch, n), generator=gen, device=dev)
+    F = chol_kernel.cholesky_cuda(K)
+    before = cuda_build.LAUNCHES["chol_solve"]
+    x = chol_kernel.cho_solve_cuda(F, b)
+    assert cuda_build.LAUNCHES["chol_solve"] == before + 1
+    r = (K.double() @ x.double()[..., None])[..., 0] - b.double()
+    assert float(r.abs().max() / b.abs().max()) < 1e-5
+    xp = chol_kernel.cho_solve_plain(F, b)
+    assert float((x - xp).abs().max() / xp.abs().max()) < 1e-5
 
 
 def _ci_walked(dev, batch, terrain=None, ticks=6, iters=24, horizon=10):

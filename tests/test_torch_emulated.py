@@ -1,5 +1,5 @@
-"""The CUDA sources of kernels K1, K4, K6 and K7, compiled as C++ for the CPU
-and run against their plain PyTorch versions: a check of the kernels'
+"""The CUDA sources of kernels K1, K4, K5, K6 and K7, compiled as C++ for the
+CPU and run against their plain PyTorch versions: a check of the kernels'
 arithmetic where there is no card.
 
 The sources are built with g++ under a small emulation of the CUDA
@@ -10,11 +10,12 @@ an exited thread does on the card), `__all_sync`, `__shfl_xor_sync` and
 `__shfl_sync` an exchange through memory within the warp (the shuffles
 through two buffers in turn, one barrier each), `__syncthreads_and` one through memory within the
 block, `__shared__` a static (a kernel's dynamic `extern __shared__` array
-is edited into a static one). The
+is edited into a static one; asynchronous copies are the sources'
+synchronous fallbacks, their waits no-ops). The
 `extern "C"` launchers (CUDA's `<<<>>>` syntax) are cut off and replaced by
 launchers that run the blocks in turn. Float32 on both sides, so the
 comparison uses the tolerances of the card's check (chip_smoke.py): K1 its
-2e-2 N GRF bracket and the float64 rule, K4 and K6 relative 1e-5, K7 the
+2e-2 N GRF bracket and the float64 rule, K4, K5 and K6 relative 1e-5, K7 the
 TPU kernel's bracket against XLA
 (tests/test_ci_fused.py:49-56). K7 runs a block of 192 threads a
 scenario; its cases are the walked-in tick at H=10 and at H=12 (the
@@ -62,6 +63,7 @@ PRELUDE = r"""
 #define __restrict__
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
+#define __grid_constant__
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 struct Dim { int x; };
@@ -69,10 +71,16 @@ Dim threadIdx, blockIdx, blockDim;      // the running thread's
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorInvalidDevice = 101,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaFuncAttributePreferredSharedMemoryCarveout = 9 };
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 template <class T>
 cudaError_t cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
+struct cudaFuncAttributes { size_t sharedSizeBytes = 0; };
+template <class T>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes*, T) {
+  return cudaSuccess;
+}
 // A block's threads are fibers (ucontext) on one host thread; a thread runs
 // until it waits at a barrier, the last to arrive releases the others.
 struct Fiber { ucontext_t ctx; std::vector<char> stack; int tid; int turn; };
@@ -189,11 +197,31 @@ extern "C" void ci_sweeps_emu(const float* z0, const float* uh0,
 """
 
 CHOL_LAUNCH = r"""
+extern "C" void chol_solve_emu(const float* F, const float* b, float* x,
+                               int B, int n) {
+  if (k5_staged(n, F)) {
+    TriRows rows;
+    tri_layout(n, &rows);
+    run_blocks(B, WARP, [&]() { chol_solve_tri(F, b, x, n, rows); });
+  } else if (n <= STREAM_N) {
+    run_blocks((B + STREAM_WARPS - 1) / STREAM_WARPS, STREAM_WARPS * WARP,
+               [&]() { chol_solve_stream<STREAM_R>(F, b, x, B, n); });
+  } else {
+    const int w = ring_warps(n);
+    run_blocks((B + w - 1) / w, w * WARP,
+               [&]() { chol_solve_ring(F, b, x, B, n); });
+  }
+}
 extern "C" void chol_solve_multi_emu(const float* F, const float* R,
                                      float* X, int B, int n, int m) {
+  if (k6_regs(n, m, F)) {
+    run_blocks((B + MULTI_WARPS - 1) / MULTI_WARPS, MULTI_WARPS * WARP,
+               [&]() { chol_solve_multi_regs<MULTI_N>(F, R, X, B, m); });
+    return;
+  }
   int t = 32 * ((m + 31) / 32);
-  if (t > 128) t = 128;
-  run_blocks(B, t, [&]() { chol_solve_multi(F, R, X, n, m); });
+  if (t > MULTI_THREADS_MAX) t = MULTI_THREADS_MAX;
+  run_blocks(B, t, [&]() { chol_solve_multi_smem(F, R, X, n, m); });
 }
 """
 
@@ -261,7 +289,8 @@ def libs(tmp_path_factory):
     ci.ci_sweeps_emu.argtypes = ([ctypes.c_void_p] * 11
                                  + [ctypes.c_int] * 3 + [ctypes.c_float] * 5)
     chol = _emulated("chol_lanes", CHOL_LAUNCH, out, edits=(
-        ("extern __shared__ float sm[];", "static float sm[16384];"),))
+        ("extern __shared__ float4 sm4[];", "static float4 sm4[8192];"),))
+    chol.chol_solve_emu.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     chol.chol_solve_multi_emu.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 3
     return ci, chol
@@ -303,18 +332,58 @@ def test_k4_emulated_matches_plain(factor_lib, n, batch):
     assert float((Fg - Fp).abs().max() / Fp.abs().max()) < 1e-5
 
 
-def test_k6_emulated_matches_plain(libs):
+def _spd_factor(batch, n, seed):
+    """Factors (cholesky_plain) of well-conditioned SPD matrices, with a
+    NaN on matrix 1's diagonal halfway down."""
+    gen = torch.Generator().manual_seed(seed)
+    A = torch.randn((batch, n, n), generator=gen)
+    F = chol_kernel.cholesky_plain(A @ A.mT * 0.05 + 5.0 * torch.eye(n))
+    F[1, n // 2, n // 2] = float("nan")
+    return F, gen
+
+
+def _check_solution(X, Xp):
+    """Matrix 1 (the NaN factor) non-finite, the others within 1e-5 of the
+    plain version, relative to its largest entry. (Matrix 2's right-hand
+    side starts with a zero, a dividend the kernels' fast division takes;
+    matrix 0's with a subnormal, which sends it to their solve with IEEE
+    divisions.)"""
+    batch = X.shape[0]
+    finite = torch.isfinite(X.reshape(batch, -1)).all(-1).tolist()
+    assert finite == [i != 1 for i in range(batch)]
+    good = torch.arange(batch) != 1
+    assert float((X[good] - Xp[good]).abs().max()
+                 / Xp[good].abs().max()) < 1e-5
+
+
+# n = 24 and 120 take the staged-triangle variant, 7 and 360 the streamed
+# rows, 400 the ring with its right-hand side in shared memory; batch 3
+# leaves the streamed variants' last block of two warps ragged
+@pytest.mark.parametrize("n", [7, 24, 120, 360, 400])
+def test_k5_emulated_matches_plain(libs, n):
     _, chol = libs
-    gen = torch.Generator().manual_seed(0)
-    B, n, m = 4, 24, 25
-    A = torch.randn((B, n, n), generator=gen)
-    F = chol_kernel.cholesky_plain(A @ A.mT + n * torch.eye(n))
-    R = torch.randn((B, n, m), generator=gen)
+    batch = 3
+    F, gen = _spd_factor(batch, n, n)
+    b = torch.randn((batch, n), generator=gen)
+    b[2, 0], b[0, 0] = 0.0, 1e-40
+    x = torch.empty_like(b)
+    chol.chol_solve_emu(F.data_ptr(), b.data_ptr(), x.data_ptr(), batch, n)
+    _check_solution(x, chol_kernel.cho_solve_plain(F, b))
+
+
+# (24, 25) is the path's shape (X in registers), the others take the
+# shared-memory variant; batch 3 leaves a block of two warps ragged
+@pytest.mark.parametrize("n,m", [(24, 25), (7, 3), (33, 40)])
+def test_k6_emulated_matches_plain(libs, n, m):
+    _, chol = libs
+    batch = 3
+    F, gen = _spd_factor(batch, n, n + m)
+    R = torch.randn((batch, n, m), generator=gen)
+    R[2, 0], R[0, 0] = 0.0, 1e-40
     X = torch.empty_like(R)
-    chol.chol_solve_multi_emu(F.data_ptr(), R.data_ptr(), X.data_ptr(), B,
-                              n, m)
-    Xp = chol_kernel.cho_solve_multi_plain(F, R)
-    assert float((X - Xp).abs().max() / Xp.abs().max()) < 1e-5
+    chol.chol_solve_multi_emu(F.data_ptr(), R.data_ptr(), X.data_ptr(),
+                              batch, n, m)
+    _check_solution(X, chol_kernel.cho_solve_multi_plain(F, R))
 
 
 def _ci_tick_args(batch, horizon=10):

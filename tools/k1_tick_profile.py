@@ -1,15 +1,20 @@
 """Where a tick of the batched Go1 trot loop goes, on the card.
 
-    python3 tools/k1_tick_profile.py [--kf-type 0|1]
+    python3 tools/k1_tick_profile.py [--kf-type 0|1] [--solver pdip|admm]
 
 Walks chip_smoke.py's batch (B=4096) in as its timed main path does (30
 ticks, the last 10 trotting at 0.15 m/s; H=10, Riccati with iters=4 warm),
 then runs 10 more ticks under torch.profiler with a span around each layer
 of the tick (MPC prepare, the K1 solve's wrapper, MPC finish, the substep
-chain's wrapper, the feedback unpack). Prints the tick's host-clock time,
-each span's host time a tick, the device time a tick of each kernel (K1, K2
-or K3, the rest summed), and the device's idle share of the window. Needs a
-CUDA device.
+chain's wrapper, the feedback unpack). With --solver, the 10 ticks solve
+with the condensed PDIP (8 warm iterations) or ADMM (30) instead, as
+chip_smoke.py's timed condensed loops do, and the spans are MPC prepare,
+the condensed build, the solver, inside it the K4 and K5 wrappers, MPC
+finish, the substep chain and the feedback unpack. Prints the tick's
+host-clock time, each span's host time a tick, the device time a tick of
+each kernel (K1, K2 or K3; with --solver K4, K5 and K2 by name too; the
+rest summed), and the device's idle share of the window. Needs a CUDA
+device.
 """
 
 import argparse
@@ -24,14 +29,17 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import B  # noqa: E402
+from chip_smoke import B, SOLVER_ITERS  # noqa: E402
 from legged_mpc_control_tpu_torch.config import go1_params  # noqa: E402
 from legged_mpc_control_tpu_torch.control import step  # noqa: E402
 from legged_mpc_control_tpu_torch.mpc import (  # noqa: E402
+    admm,
     convex_mpc,
     gait,
+    pdip,
     riccati,
 )
+from legged_mpc_control_tpu_torch.ops import chol_kernel  # noqa: E402
 from legged_mpc_control_tpu_torch.parallel import runner  # noqa: E402
 
 # (module, attribute, span name): the layers of a tick, each called through
@@ -41,6 +49,26 @@ LAYERS = ((convex_mpc, "mpc_prepare", "MPC prepare"),
           (convex_mpc, "mpc_finish", "MPC finish"),
           (step, "_substep_chain", "substep chain (wrapper)"),
           (step, "unpack_fused_feedback", "feedback unpack"))
+# the condensed solvers' layers (--solver)
+SOLVER_LAYERS = {"pdip": (pdip, "solve_qp_pdip_batched", "PDIP solve"),
+                 "admm": (admm, "solve_qp_admm_batched", "ADMM solve")}
+
+
+def condensed_layers(solver):
+    return ((convex_mpc, "mpc_prepare", "MPC prepare"),
+            (convex_mpc, "build_condensed_from_stage", "condensed build"),
+            SOLVER_LAYERS[solver],
+            (chol_kernel, "cholesky_cuda", "  K4 wrapper (in solve)"),
+            (chol_kernel, "cho_solve_cuda", "  K5 wrapper (in solve)"),
+            (convex_mpc, "mpc_finish", "MPC finish"),
+            (step, "_substep_chain", "substep chain (wrapper)"),
+            (step, "unpack_fused_feedback", "feedback unpack"))
+
+
+# device time by kernel name: the condensed path's kernels
+CONDENSED_KERNELS = (("K4 chol_factor", "chol_factor"),
+                     ("K5 chol_solve", "chol_solve"),
+                     ("K2 substep_chain", "substep_chain"))
 TICKS = 10
 
 
@@ -68,6 +96,7 @@ def spans(layers):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kf-type", type=int, default=0)
+    ap.add_argument("--solver", choices=sorted(SOLVER_LAYERS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_tick_profile.py: no CUDA device available")
@@ -80,23 +109,33 @@ def main():
                                   height_range=(0.26, 0.30), dtype=f32,
                                   body_height=0.28, device=dev)
 
-    def make(n, stand):
+    def make(n, stand, solver="riccati", iters=4):
         return runner.make_batched_rollout(
-            pattern, horizon=10, n_ticks=n, pdip_iters=4, walk_velx=0.15,
-            stand_ticks=stand, kf_type=args.kf_type)
+            pattern, horizon=10, n_ticks=n, pdip_iters=iters,
+            walk_velx=0.15, stand_ticks=stand, kf_type=args.kf_type,
+            solver=solver)
 
     walked = make(30, 20)(loop, params)[0]
-    roll = make(TICKS, 0)
-    profile(lambda: roll(walked, params), LAYERS, TICKS,
-            f"kf_type {args.kf_type}, B={B}, {TICKS} ticks", "tick",
-            scenarios=B)
+    if args.solver is None:
+        roll = make(TICKS, 0)
+        profile(lambda: roll(walked, params), LAYERS, TICKS,
+                f"kf_type {args.kf_type}, B={B}, {TICKS} ticks", "tick",
+                scenarios=B)
+        return
+    iters = SOLVER_ITERS[args.solver]
+    roll = make(TICKS, 0, args.solver, iters)
+    profile(lambda: roll(walked, params), condensed_layers(args.solver),
+            TICKS, f"{args.solver} {iters} warm, kf_type {args.kf_type}, "
+            f"B={B}, {TICKS} ticks", "tick", scenarios=B,
+            groups=CONDENSED_KERNELS)
 
 
-def profile(run, layers, n, what, unit, scenarios=None):
+def profile(run, layers, n, what, unit, scenarios=None, groups=()):
     """Run `run` once to warm up, then once under torch.profiler with
     `layers` in spans; print the host-clock time a `unit` (run does n),
-    each span's host time, the device time by kernel and the device's idle
-    share."""
+    each span's host time, the device time by kernel (and summed over the
+    kernels whose names hold each `groups` pattern: (label, pattern)) and
+    the device's idle share."""
     run()                                           # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -133,6 +172,9 @@ def profile(run, layers, n, what, unit, scenarios=None):
         print(f"   {label:26s} {us / 1e3 / n:8.3f} ms")
     print(f"device time a {unit}: {busy_us / 1e3 / n:.3f} ms; device idle "
           f"share {1.0 - busy_us / (wall * 1e6):.3f}")
+    for label, pattern in groups:
+        us = sum(t for name, t in kernels.items() if pattern in name)
+        print(f"   {label:26s} {us / 1e3 / n:8.3f} ms a {unit}")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])
     for name, us in top[:6]:
         print(f"   {us / 1e3 / n:8.3f} ms  {name[:90]}")
