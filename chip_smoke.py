@@ -55,12 +55,14 @@ CSRC = "legged_mpc_control_tpu_torch/csrc/"
 # cores; these kernels do scalar float32 work)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12          # H100 SXM, float64 outside the tensor cores
 
 
-def bound(nbytes, flops):
-    """(bound_ms, bound_by) of work moving `nbytes` and doing `flops`."""
+def bound(nbytes, flops, flops64=0):
+    """(bound_ms, bound_by) of work moving `nbytes` and doing `flops`
+    float32 and `flops64` float64 operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = (flops / F32_FLOP_PER_S + flops64 / F64_FLOP_PER_S) * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations"))
 
@@ -74,6 +76,9 @@ def bound(nbytes, flops):
 # dual-residual rollout and adjoint (two more).
 K1_FLOP_PER_STAGE_ITER = 2 * (8 * 12 ** 3 + 12 ** 3 // 6 + 2 * 4 * 12 ** 2
                               + 2 * 12 ** 2)
+# of which the factor sweep's, float64 for H >= 14
+K1_FACTOR_FLOP_PER_STAGE_ITER = 2 * (8 * 12 ** 3 + 12 ** 3 // 6)
+K1_F64_MIN_H = 14
 # K2 (csrc/substep_chain.cu): per substep and leg ~600 (Jacobian, three
 # rotations, two four-branch IKs with ~30 transcendentals each, two 3x3
 # solves, FK, the friction pyramid), per substep ~250 for the trunk; the
@@ -220,16 +225,24 @@ def qp_problem(batch, horizon, dev):
 
 # K4's variants, one per shape regime (csrc/chol_factor.cu)
 K4_VARIANTS = ("chol_factor_small", "chol_factor_mid", "chol_factor_large")
-# K1's instantiations by the place of its per-stage store (mangled
-# riccati_ipm_kernel<true> / <false>, csrc/riccati_ipm.cu)
-K1_VARIANTS = ("riccati_ipm_kernelILb1E", "riccati_ipm_kernelILb0E")
+# K1's instantiations by the place of its per-stage store and the type of
+# its factor sweep (mangled riccati_ipm_kernel<SMEM, F64>,
+# csrc/riccati_ipm.cu)
+K1_VARIANTS = ("riccati_ipm_kernelILb1ELb0E", "riccati_ipm_kernelILb1ELb1E",
+               "riccati_ipm_kernelILb0ELb0E", "riccati_ipm_kernelILb0ELb1E")
+# K2 and K3 (mangled substep_chain_kernel<KF1>, csrc/substep_chain.cu)
+K23_VARIANTS = ("substep_chain_kernelILb0E", "substep_chain_kernelILb1E")
 # K5's three variants (staged triangle, streamed rows, the ring for any n)
 # and K6's two (X in registers at n=24, in shared memory otherwise),
 # csrc/chol_lanes.cu
 K56_VARIANTS = ("chol_solve_tri", "chol_solve_stream", "chol_solve_ring",
                 "chol_solve_multi_regs", "chol_solve_multi_smem")
 # sources whose every kernel must build with no stack frame and no spills
+# (K2/K3: no spills; sinf/cosf keep the words of their large-argument range
+# reduction in a 32-byte stack frame)
+NO_SPILLS = "0 bytes spill stores, 0 bytes spill loads"
 GATED = {"riccati_ipm": ("K1", K1_VARIANTS),
+         "substep_chain": ("K2/K3", K23_VARIANTS),
          "chol_factor": ("K4", K4_VARIANTS),
          "chol_lanes": ("K5/K6", K56_VARIANTS),
          "ci_sweeps": ("K7", ("ci_sweeps",))}
@@ -269,8 +282,9 @@ def phase_build():
             variant = next((v for v in variants if v in fn), fn)
             seen.add(variant)
             print(f"   {label} {variant}: " + " | ".join(lines), flush=True)
-            check(any("0 bytes stack frame, 0 bytes spill stores, 0 bytes "
-                      "spill loads" in ln for ln in lines),
+            want = (NO_SPILLS if src == "substep_chain"
+                    else "0 bytes stack frame, " + NO_SPILLS)
+            check(any(want in ln for ln in lines),
                   f"{label} {variant}: a stack frame or spills")
         check(seen == set(variants),
               f"{label} variants built: {sorted(seen)}")
@@ -360,9 +374,11 @@ def phase_k1(dev, card):
             *args, DT, iters=15), reps=5)
         plain_ms = cuda_ms(lambda: riccati.solve_qp_riccati_batched(
             *args, DT, iters=15), reps=2)
+        f64 = K1_FACTOR_FLOP_PER_STAGE_ITER if horizon >= K1_F64_MIN_H else 0
         b_ms, b_by = bound(
             B * 4 * (NX_IN_K1(horizon) + NX_OUT_K1(horizon)),
-            B * horizon * 15 * K1_FLOP_PER_STAGE_ITER)
+            B * horizon * 15 * (K1_FLOP_PER_STAGE_ITER - f64),
+            B * horizon * 15 * f64)
         print(f"   time ({card}): kernel {ms:.3f} ms, plain {plain_ms:.3f} "
               f"ms per cold solve; bound {b_ms:.4f} ms ({b_by})", flush=True)
         stats[horizon] = dict(err=err, ms=ms, plain_ms=plain_ms,
@@ -410,6 +426,53 @@ STATE_TOL = {"pos": 2e-4, "quat": 2e-4, "vel": 2e-3, "omega": 5e-3,
              "dq_tgt": 5e-2, "tau_ff": 1e-2}
 
 
+def chain_gate(label, got, want):
+    """K2's or K3's outputs against the plain version's: the same contacts
+    in every scenario, every row within its bracket. Returns the largest
+    state error."""
+    from legged_mpc_control_tpu_torch.ops import substep_kernel
+
+    n = got["pos"].shape[0]
+    flips = int((got["contact"] != want["contact"]).any(-1).sum())
+    print(f"   B={n}: scenarios whose contacts differ: {flips}", flush=True)
+    check(flips == 0, f"{label} B={n}: contacts differ in {flips} scenarios")
+    err = 0.0
+    kf = {**KF_TOL} if "kf_x" in got else {}
+    for name, tol in {**STATE_TOL, **kf}.items():
+        e = float((got[name] - want[name]).abs().max())
+        check(bool(torch.isfinite(got[name]).all()),
+              f"{label} B={n} {name} non-finite")
+        print(f"   B={n} {name}: max err {e:.3e} (tol {tol})", flush=True)
+        check(e <= tol, f"{label} B={n} {name}: {e} > {tol}")
+        err = max(err, e)
+    if kf:
+        atol, rtol = KF_P_TOL
+        dP = (got["kf_P"] - want["kf_P"]).abs()
+        over = float((dP - rtol * want["kf_P"].abs()).max())
+        print(f"   B={n} kf_P: max err {float(dP.max()):.3e} (tol {atol} + "
+              f"{rtol} relative)", flush=True)
+        check(over <= atol, f"{label} B={n} kf_P: {over} over the bracket")
+    for name, (off, m) in substep_kernel.FB_ROWS.items():
+        e = float((got["fb"][:, off:off + m]
+                   - want["fb"][:, off:off + m]).abs().max())
+        check(e <= FB_TOL[name], f"{label} B={n} fb {name}: {e} > "
+              f"{FB_TOL[name]}")
+    return err
+
+
+def chain_b256(label, args, kw):
+    """K2 or K3 on the first 256 scenarios of the batch (the CI loop's
+    batch size) against the plain version; returns the kernel's ms."""
+    from legged_mpc_control_tpu_torch.ops import substep_kernel
+
+    a = tuple(x[:256] if torch.is_tensor(x) and x.dim() else x for x in args)
+    k = {n: (v[:256] if torch.is_tensor(v) else v) for n, v in kw.items()}
+    chain_gate(label, substep_kernel.substep_chain_cuda(*a, **k),
+               substep_kernel.substep_chain_plain(*a, **k))
+    return cuda_ms(lambda: substep_kernel.substep_chain_cuda(*a, **k),
+                   reps=20)
+
+
 def phase_k2(dev, card):
     """Kernel K2 vs its plain version, all 8 substeps, from mid-trot."""
     from legged_mpc_control_tpu_torch.config import go1_params
@@ -445,29 +508,18 @@ def phase_k2(dev, card):
     stance = float(sim.contact.float().mean())
     print(f"   start: stance share {stance:.3f}", flush=True)
     check(0.05 < stance < 0.95, "K2 start state is not mid-trot")
-    err = 0.0
-    flips = int((got["contact"] != want["contact"]).any(-1).sum())
-    print(f"   scenarios whose contacts differ: {flips}", flush=True)
-    check(flips == 0, f"K2: contacts differ in {flips} scenarios")
-    for name, tol in STATE_TOL.items():
-        e = float((got[name] - want[name]).abs().max())
-        check(bool(torch.isfinite(got[name]).all()), f"K2 {name} non-finite")
-        print(f"   {name}: max err {e:.3e} (tol {tol})", flush=True)
-        check(e <= tol, f"K2 {name}: {e} > {tol}")
-        err = max(err, e)
-    for name, (off, n) in substep_kernel.FB_ROWS.items():
-        e = float((got["fb"][:, off:off + n]
-                   - want["fb"][:, off:off + n]).abs().max())
-        check(e <= FB_TOL[name], f"K2 fb {name}: {e} > {FB_TOL[name]}")
+    err = chain_gate("K2", got, want)
     ms = cuda_ms(lambda: substep_kernel.substep_chain_cuda(*args, **kw),
                  reps=20)
     plain_ms = cuda_ms(lambda: substep_kernel.substep_chain_plain(*args, **kw),
                        reps=3)
+    ms256 = chain_b256("K2", args, kw)
     b_ms, b_by = bound(
         B * 4 * (substep_kernel.N_IN + 1 + substep_kernel.N_OUT),
         B * (8 * K2_FLOP_PER_SUBSTEP + K2_FLOP_TAIL))
-    print(f"   time ({card}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"per 8-substep chain; bound {b_ms:.4f} ms ({b_by})", flush=True)
+    print(f"   time ({card}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+          f"per 8-substep chain; bound {b_ms:.4f} ms ({b_by}); kernel "
+          f"{ms256:.4f} ms at B=256", flush=True)
     done(t0)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
@@ -612,36 +664,19 @@ def phase_k3(dev, card):
     print(f"   start: stance share {stance:.3f}, max |estimate - truth| "
           f"{est:.3e} m", flush=True)
     check(0.05 < stance < 0.95, "K3 start state is not mid-trot")
-    flips = int((got["contact"] != want["contact"]).any(-1).sum())
-    print(f"   scenarios whose contacts differ: {flips}", flush=True)
-    check(flips == 0, f"K3: contacts differ in {flips} scenarios")
-    err = 0.0
-    for name, tol in {**STATE_TOL, **KF_TOL}.items():
-        e = float((got[name] - want[name]).abs().max())
-        check(bool(torch.isfinite(got[name]).all()), f"K3 {name} non-finite")
-        print(f"   {name}: max err {e:.3e} (tol {tol})", flush=True)
-        check(e <= tol, f"K3 {name}: {e} > {tol}")
-        err = max(err, e)
-    atol, rtol = KF_P_TOL
-    dP = (got["kf_P"] - want["kf_P"]).abs()
-    over = float((dP - rtol * want["kf_P"].abs()).max())
-    print(f"   kf_P: max err {float(dP.max()):.3e} (tol {atol} + {rtol} "
-          "relative)", flush=True)
-    check(over <= atol, f"K3 kf_P: {over} over the bracket")
-    for name, (off, n) in substep_kernel.FB_ROWS.items():
-        e = float((got["fb"][:, off:off + n]
-                   - want["fb"][:, off:off + n]).abs().max())
-        check(e <= FB_TOL[name], f"K3 fb {name}: {e} > {FB_TOL[name]}")
+    err = chain_gate("K3", got, want)
     ms = cuda_ms(lambda: substep_kernel.substep_chain_cuda(*args, **kw),
                  reps=20)
     plain_ms = cuda_ms(lambda: substep_kernel.substep_chain_plain(*args, **kw),
                        reps=3)
+    ms256 = chain_b256("K3", args, kw)
     n_kf = substep_kernel.N_KF
     b_ms, b_by = bound(
         B * 4 * (substep_kernel.N_IN + n_kf + 1 + substep_kernel.N_OUT + n_kf),
         B * (8 * K3_FLOP_PER_SUBSTEP + K2_FLOP_TAIL))
-    print(f"   time ({card}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"per 8-substep chain; bound {b_ms:.4f} ms ({b_by})", flush=True)
+    print(f"   time ({card}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+          f"per 8-substep chain; bound {b_ms:.4f} ms ({b_by}); kernel "
+          f"{ms256:.4f} ms at B=256", flush=True)
     done(t0)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)

@@ -34,27 +34,42 @@
 // - the 12x12 Cholesky runs on 12 lanes with shuffles, right-looking, in the
 //   old kernel's update order, with sqrtf and a true reciprocal (NaN on a
 //   non-positive pivot, which the direction guard catches), while the
-//   product lanes form A^T W beside it; the reciprocals of the pivots are
-//   stored with the factor, so the triangular solves multiply. K's twelve
-//   columns are solved one a lane, and a vector solve runs on every lane
-//   at once, both in registers. Sums accumulate in the old kernel's order
-//   (at H=30 another order left the kernel 1.4x farther from float64 than
-//   the plain version in its worst scenario).
+//   product lanes form A^T W beside it. K's twelve columns are solved one a
+//   lane, and a vector solve runs on every lane at once, both in
+//   registers. Sums accumulate in the old kernel's order.
+// Precision: the Newton systems are near-singular in float32 (r = 1e-4 on
+// the forces, D up to 1e6), and along the horizon the factor sweep's P
+// recursion carries its rounding from stage to stage. At H=30 the float32
+// sweep left the kernel up to 0.15 N from the same iterations in exact
+// arithmetic (the plain version 0.13 N), where a float64 sweep leaves 0.03
+// N (the CPU emulation, PERF.md). So for H >= F64_MIN_H (14) the factor
+// sweep (W, B^T W, Huu, Hux, the Cholesky, K, P) runs in float64 in the work
+// area, its results stored as float32; the pivots come from rsqrt, and the
+// float32 LQR solves divide by the stored pivots, as LAPACK's triangular
+// solves do. Below, the sweep keeps float32 and multiplies by stored
+// reciprocals: at H=10 the float64 sweep costs 1.8x at the loop's call, and
+// over 16 seeds of the card tests' fixture on two batch sets the float32
+// sweep meets the float64 criteria at H=13 in every case, the float64 one
+// in all but one (PERF.md; tools/k1_seed_sweep.py).
 // A_k is loaded into registers a stage ahead of its use in every sweep.
 // The factor sweep's temporaries (B, A_k, P, B^T W / A^T W, Huu, Hux) live
-// in a 3.6 KB work area of shared memory per warp. The per-stage store
+// in a work area of shared memory per warp (3.6 KB; 6.0 KB with the
+// float64 sweep). The per-stage store
 // lives in shared memory too while H <= SMEM_MAX_H (22.6 KB a scenario at
 // H=10, 8 scenarios an SM), else in a scenario-major device scratch (one
 // warp reads one scenario's consecutive floats; at H=10 it is 18-26 %
 // slower than shared memory on an H100, PERF.md). One templated body serves
-// both; the launcher dispatches on H (the TPU kernel's cutoff is also
-// H <= 12). Register arrays are indexed by unrolled constants only.
+// the four combinations; the launcher dispatches on H (the TPU kernel's
+// cutoff is also H <= 12). Register arrays are indexed by unrolled
+// constants only.
 // Inputs are the batch-first tensors of the plain version, read in place.
 // A scenario whose iterate converged (or whose direction went non-finite)
 // leaves the iteration loop: the masked no-op update of the TPU kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 // Phase marks, empty in the package's build: tools/k1_spans.py defines
 // them (K1_SPANS) to read clock64() around each phase of an iteration.
@@ -68,6 +83,11 @@
 #ifndef K1_SMEM_MAX_H
 #define K1_SMEM_MAX_H 12
 #endif
+// Horizons whose factor sweep runs in float64 (tools/k1_times.py and
+// tools/k1_spans.py also build with 0 and 1000: every horizon, none)
+#ifndef K1_F64_MIN_H
+#define K1_F64_MIN_H 14
+#endif
 
 namespace {
 
@@ -78,8 +98,8 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // the per-stage store (floats; every block starts on 16 bytes)
 constexpr int ST_L = 0;                   // Cholesky factor of Huu
-constexpr int ST_LINV = ST_L + MAT;       // 1 / L[i][i]
-constexpr int ST_K = ST_LINV + NX;
+constexpr int ST_PIV = ST_L + MAT;        // 1 / L[i][i]; L[i][i] if F64
+constexpr int ST_K = ST_PIV + NX;
 constexpr int ST_HUX = ST_K + MAT;
 constexpr int ST_VEC = ST_HUX + MAT;      // x_{k+1} of the rollout
 constexpr int ST_KFF = ST_VEC + NX;
@@ -91,18 +111,26 @@ constexpr int ST_S = ST_U + NX;
 constexpr int ST_LAM = ST_S + NCON;
 constexpr int ST_PER_STAGE = ST_LAM + NCON;   // 564
 
-// the per-warp work area of the factor sweep (floats, shared memory)
+// the per-warp work area (shared memory): floats, then the factor sweep's
+// blocks in its type FT (float or double; FT_OFF bytes in)
 constexpr int W_BM = 0;                   // B (unmasked), all stages
 constexpr int W_A = W_BM + MAT;           // A_k of the current pass
-constexpr int W_P = W_A + MAT;            // P, then W = P + Q, then K
-constexpr int W_T = W_P + MAT;            // B_k^T W, then A_k^T W
-constexpr int W_C = W_T + MAT;            // Huu, then its factor, then P'
-constexpr int W_H = W_C + MAT;            // Hux
-constexpr int W_LINV = W_H + MAT;         // 1 / L[i][i]
-constexpr int W_D = W_LINV + NX;          // D = clip(lam / s), 24
-constexpr int W_FLOATS = W_D + NCON;      // 900
+constexpr int W_D = W_A + MAT;            // D = clip(lam / s), 24
+constexpr int W_FLOATS = W_D + NCON;      // 312
+constexpr int FT_OFF = W_FLOATS * (int)sizeof(float);
+constexpr int D_P = 0;                    // P, then W = P + Q, then K
+constexpr int D_T = D_P + MAT;            // B_k^T W, then A_k^T W
+constexpr int D_C = D_T + MAT;            // Huu, then its factor, then P'
+constexpr int D_H = D_C + MAT;            // Hux
+constexpr int D_PIV = D_H + MAT;          // 1 / L[i][i]
+constexpr int D_N = D_PIV + NX;           // 588
+// bytes of a warp's work area (a multiple of 16: 3600 or 5952)
+__host__ __device__ constexpr int work_bytes(bool f64) {
+  return FT_OFF + D_N * (f64 ? 8 : 4);
+}
 
 constexpr int SMEM_MAX_H = K1_SMEM_MAX_H;
+constexpr int F64_MIN_H = K1_F64_MIN_H;
 constexpr int WARPS_SMEM = 2;             // scenarios a block, either store
 constexpr int WARPS_GLOBAL = 4;
 
@@ -158,7 +186,11 @@ __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// the first 4 n floats of a 16-byte aligned row, n float4 loads (n is a
+__device__ __forceinline__ double2 ld2d(const double* p) {
+  return *reinterpret_cast<const double2*>(p);
+}
+
+// the first 4 n elements of a 16-byte aligned row, by 16-byte loads (n is a
 // constant wherever the callers are unrolled)
 __device__ __forceinline__ void ld_row(const float* p, float r[NX],
                                        int n = 3) {
@@ -169,6 +201,16 @@ __device__ __forceinline__ void ld_row(const float* p, float r[NX],
     r[4 * v + 1] = t.y;
     r[4 * v + 2] = t.z;
     r[4 * v + 3] = t.w;
+  }
+}
+
+__device__ __forceinline__ void ld_row(const double* p, double r[NX],
+                                       int n = 3) {
+#pragma unroll
+  for (int v = 0; v < 2 * n; ++v) {
+    const double2 t = ld2d(p + 2 * v);
+    r[2 * v] = t.x;
+    r[2 * v + 1] = t.y;
   }
 }
 
@@ -200,32 +242,70 @@ __device__ __forceinline__ int pcol(int h, int q) {
   return q < 4 ? 4 * h + q : 8 + 2 * h + (q - 4);
 }
 
+// the six columns pcol(h, 0..5) of a row
+__device__ __forceinline__ void ld_cols(const float* row, int h, float y[6]) {
+  const float4 y4 = ld4(row + 4 * h);
+  const float2 y2 = ld2(row + 8 + 2 * h);
+  y[0] = y4.x;
+  y[1] = y4.y;
+  y[2] = y4.z;
+  y[3] = y4.w;
+  y[4] = y2.x;
+  y[5] = y2.y;
+}
+
+__device__ __forceinline__ void ld_cols(const double* row, int h,
+                                        double y[6]) {
+  const double2 a = ld2d(row + 4 * h), b = ld2d(row + 4 * h + 2),
+                c = ld2d(row + 8 + 2 * h);
+  y[0] = a.x;
+  y[1] = a.y;
+  y[2] = b.x;
+  y[3] = b.y;
+  y[4] = c.x;
+  y[5] = c.y;
+}
+
 // c[q] = sum_r X(i, r) Y(r, pcol(h, q)), with X(i, r) = X[i][r] or, for
-// XT, X[r][i]
-template <bool XT>
-__device__ __forceinline__ void mm6(const float* X, const float* Y, int i,
-                                    int h, float c[6]) {
-  float xr[NX];
-  if (!XT) ld_row(X + i * NX, xr);
+// XT, X[r][i], accumulated in c's type
+template <bool XT, typename TX, typename TY, typename TC>
+__device__ __forceinline__ void mm6(const TX* X, const TY* Y, int i, int h,
+                                    TC c[6]) {
+  // X's row in registers when it is float32; a float64 one element by
+  // element, which keeps fewer registers live
+  constexpr bool ROW = !XT && sizeof(TX) == 4;
+  TX xr[NX];
+  if (ROW) ld_row(X + i * NX, xr);
 #pragma unroll
-  for (int q = 0; q < 6; ++q) c[q] = 0.0f;
+  for (int q = 0; q < 6; ++q) c[q] = 0;
 #pragma unroll
   for (int r = 0; r < NX; ++r) {
-    const float x = XT ? X[r * NX + i] : xr[r];
-    const float4 y4 = ld4(Y + r * NX + 4 * h);
-    const float2 y2 = ld2(Y + r * NX + 8 + 2 * h);
-    c[0] += x * y4.x;
-    c[1] += x * y4.y;
-    c[2] += x * y4.z;
-    c[3] += x * y4.w;
-    c[4] += x * y2.x;
-    c[5] += x * y2.y;
+    const TC x = XT ? X[r * NX + i] : ROW ? xr[r] : X[i * NX + r];
+    TY y[6];
+    ld_cols(Y + r * NX, h, y);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) c[q] += x * (TC)y[q];
   }
 }
 
 __device__ __forceinline__ void st6(float* row, int h, const float c[6]) {
   *reinterpret_cast<float4*>(row + 4 * h) = float4{c[0], c[1], c[2], c[3]};
   *reinterpret_cast<float2*>(row + 8 + 2 * h) = float2{c[4], c[5]};
+}
+
+__device__ __forceinline__ void st6(double* row, int h, const double c[6]) {
+  *reinterpret_cast<double2*>(row + 4 * h) = double2{c[0], c[1]};
+  *reinterpret_cast<double2*>(row + 4 * h + 2) = double2{c[2], c[3]};
+  *reinterpret_cast<double2*>(row + 8 + 2 * h) = double2{c[4], c[5]};
+}
+
+// a float copy of the six values into a row of the per-stage store
+template <typename T>
+__device__ __forceinline__ void st6f(float* row, int h, const T c[6]) {
+  float f[6];
+#pragma unroll
+  for (int q = 0; q < 6; ++q) f[q] = (float)c[q];
+  st6(row, h, f);
 }
 
 // the mask of leg l from the stage's four contact flags
@@ -244,40 +324,62 @@ __device__ __forceinline__ float g_row(const Con& g, float f0, float f1,
 }
 
 // solve (L L^T) y = v in place, y in registers, in the old kernel's order
-// of accumulation (forward by float4 rows of L, backward by its columns);
-// linv holds 1 / L[i][i]
-__device__ __forceinline__ void cho_solve_regs(const float* L,
-                                               const float* linv,
-                                               float y[NX]) {
-  float inv[NX];
-  ld_row(linv, inv);
+// of accumulation (forward by 16-byte rows of L, backward by its columns).
+// piv holds the pivots L[i][i], by which the solve divides (DIV, as
+// LAPACK's triangular solves do), or their reciprocals, by which it
+// multiplies.
+template <bool DIV, typename T>
+__device__ __forceinline__ void cho_solve_regs(const T* L, const T* piv,
+                                               T y[NX]) {
+  if constexpr (sizeof(T) == 8) {
+    // float64 (the factor sweep's K solve): the same sums, with element
+    // loads, which keep fewer registers live
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      T acc = y[i];
+#pragma unroll
+      for (int j = 0; j < i; ++j) acc -= L[i * NX + j] * y[j];
+      y[i] = DIV ? acc / piv[i] : acc * piv[i];
+    }
+#pragma unroll
+    for (int i = NX - 1; i >= 0; --i) {
+      T acc = y[i];
+#pragma unroll
+      for (int j = i + 1; j < NX; ++j) acc -= L[j * NX + i] * y[j];
+      y[i] = DIV ? acc / piv[i] : acc * piv[i];
+    }
+    return;
+  }
+  T inv[NX];
+  ld_row(piv, inv);
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
-    float lr[NX];
+    T lr[NX];
     ld_row(L + i * NX, lr, (i + 3) / 4);
-    float acc = y[i];
+    T acc = y[i];
 #pragma unroll
     for (int j = 0; j < i; ++j) acc -= lr[j] * y[j];
-    y[i] = acc * inv[i];
+    y[i] = DIV ? acc / inv[i] : acc * inv[i];
   }
 #pragma unroll
   for (int i = NX - 1; i >= 0; --i) {
-    float acc = y[i];
+    T acc = y[i];
 #pragma unroll
     for (int j = i + 1; j < NX; ++j) acc -= L[j * NX + i] * y[j];
-    y[i] = acc * inv[i];
+    y[i] = DIV ? acc / inv[i] : acc * inv[i];
   }
 }
 
 // the same for a vector held one element a lane (lane i < 12 holds v_i):
 // every lane solves the whole vector and keeps its own element
+template <bool DIV>
 __device__ __forceinline__ float cho_solve_vec(const float* L,
-                                               const float* linv, float v,
+                                               const float* piv, float v,
                                                int ri) {
   float y[NX];
 #pragma unroll
   for (int j = 0; j < NX; ++j) y[j] = __shfl_sync(FULL, v, j);
-  cho_solve_regs(L, linv, y);
+  cho_solve_regs<DIV>(L, piv, y);
   float out = y[0];
 #pragma unroll
   for (int j = 1; j < NX; ++j) out = ri == j ? y[j] : out;
@@ -297,19 +399,24 @@ __device__ __forceinline__ float gt_row(float w, float mu, int ri) {
                 : -mu * (v[0] + v[1] + v[2] + v[3]) + v[4] - v[5];
 }
 
-template <bool SMEM>
+// SMEM: the per-stage store in shared memory (else device scratch); F64:
+// the factor sweep in float64 (else float32)
+template <bool SMEM, bool F64>
 __global__ void __launch_bounds__(32 * (SMEM ? WARPS_SMEM : WARPS_GLOBAL))
 riccati_ipm_kernel(Args a) {
+  using FT = typename std::conditional<F64, double, float>::type;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  char* smem = reinterpret_cast<char*>(smem4);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int wpb = blockDim.x >> 5;
   const int b = blockIdx.x * wpb + warp;
   if (b >= a.B) return;
   const int H = a.H;
-  float* w = smem + warp * W_FLOATS;
-  float* st = SMEM ? smem + wpb * W_FLOATS + (size_t)warp * H * ST_PER_STAGE
+  float* w = reinterpret_cast<float*>(smem + warp * work_bytes(F64));
+  FT* wd = reinterpret_cast<FT*>(smem + warp * work_bytes(F64) + FT_OFF);
+  float* st = SMEM ? reinterpret_cast<float*>(smem + wpb * work_bytes(F64)) +
+                         (size_t)warp * H * ST_PER_STAGE
                    : a.scr + (size_t)b * H * ST_PER_STAGE;
 
   // lane roles: row lane ri (lanes >= 12 shadow lane 11), constraint lane
@@ -416,7 +523,7 @@ riccati_ipm_kernel(Args a) {
       __syncwarp();
       float pn = 0.0f;
       K1_SPAN(14);
-      kff = -cho_solve_vec(st_k + ST_L, st_k + ST_LINV, kff, ri);
+      kff = -cho_solve_vec<F64>(st_k + ST_L, st_k + ST_PIV, kff, ri);
       K1_SPAN(15);
 #pragma unroll
       for (int j = 0; j < NX; ++j)
@@ -525,9 +632,10 @@ riccati_ipm_kernel(Args a) {
     rp_max = warp_max(rp_max);
     rd_max = warp_max(rd_max);
 
-    // backward Riccati factor sweep: L, K, Hux per stage into the store.
+    // backward Riccati factor sweep: L, K, Hux per stage into the store
+    // (float copies; the sweep's own blocks are FT).
     // Hu_k = blockdiag(G^T D G) + diag(r + reg), with D = clip(lam / s).
-    for (int e = lane; e < MAT; e += 32) w[W_P + e] = 0.0f;
+    for (int e = lane; e < MAT; e += 32) wd[D_P + e] = 0;
     pa.load(Ak(H - 1), lane);
     for (int k = H - 1; k >= 0; --k) {
       float* st_k = stage(k);
@@ -538,28 +646,28 @@ riccati_ipm_kernel(Args a) {
         const float s = st_k[ST_S + ci], lm = st_k[ST_LAM + ci];
         if (cv) w[W_D + ci] = fminf(fmaxf(lm / fmaxf(s, EPS), 0.0f), D_MAX);
       }
-      if (rv) w[W_P + ri * NX + ri] += qw;                 // W = P + Q
+      if (rv) wd[D_P + ri * NX + ri] += qw;                // W = P + Q
       const float4 cm = ld4(cont + 4 * k);
       __syncwarp();
-      float c[6], d[6];
-      mm6<true>(Bs, w + W_P, pi, ph, c);                   // T = B_k^T W
+      FT c[6], d[6];
+      mm6<true>(Bs, wd + D_P, pi, ph, c);                  // T = B_k^T W
       const float mi = leg_mask(cm, pi / 3);
 #pragma unroll
       for (int q = 0; q < 6; ++q) c[q] *= mi;
-      if (pv) st6(w + W_T + pi * NX, ph, c);
+      if (pv) st6(wd + D_T + pi * NX, ph, c);
       __syncwarp();
-      mm6<false>(w + W_T, Bs, pi, ph, c);          // C = T B_k, Hux = T A_k
-      mm6<false>(w + W_T, w + W_A, pi, ph, d);
+      mm6<false>(wd + D_T, Bs, pi, ph, c);         // C = T B_k, Hux = T A_k
+      mm6<false>(wd + D_T, w + W_A, pi, ph, d);
 #pragma unroll
       for (int q = 0; q < 6; ++q) c[q] *= leg_mask(cm, pcol(ph, q) / 3);
       if (pv) {
-        st6(w + W_C + pi * NX, ph, c);
-        st6(w + W_H + pi * NX, ph, d);
-        st6(st_k + ST_HUX + pi * NX, ph, d);
+        st6(wd + D_C + pi * NX, ph, c);
+        st6(wd + D_H + pi * NX, ph, d);
+        st6f(st_k + ST_HUX + pi * NX, ph, d);
       }
       __syncwarp();
       if (rv) {                                            // C += Hu
-        float* C = w + W_C + ri * NX;
+        FT* C = wd + D_C + ri * NX;
         const float* D = w + W_D + 6 * (ri / 3);
         const int o = 3 * (ri / 3), r3 = ri % 3;
         C[ri] += rw + REG;
@@ -579,58 +687,70 @@ riccati_ipm_kernel(Args a) {
       K1_SPAN(3);
       // chol12(C) on the row lanes, right-looking; A_k^T W beside it, on
       // the product lanes, with no barrier between the two
-      float r12[NX];
-      ld_row(w + W_C + ri * NX, r12);
-      float inv_d = 0.0f;
+      FT r12[NX];
+      ld_row(wd + D_C + ri * NX, r12);
+      FT inv_d = 0, piv_d = 0;
 #pragma unroll
       for (int j = 0; j < NX; ++j) {
-        const float dj = sqrtf(__shfl_sync(FULL, r12[j], j));
-        const float inv = 1.0f / dj;
+        const FT x = __shfl_sync(FULL, r12[j], j);
+        FT dj, inv;
+        if constexpr (F64) {             // 1 / sqrt(x) within an ulp
+          inv = rsqrt(x);
+          dj = x * inv;
+        } else {
+          dj = sqrtf(x);
+          inv = 1.0f / dj;
+        }
         r12[j] = lane == j ? dj : r12[j] * inv;
         inv_d = lane == j ? inv : inv_d;
+        piv_d = lane == j ? dj : piv_d;
 #pragma unroll
         for (int cc = j + 1; cc < NX; ++cc)
           r12[cc] -= r12[j] * __shfl_sync(FULL, r12[j], cc);
       }
-      mm6<true>(w + W_A, w + W_P, pi, ph, c);              // A_k^T W
+      mm6<true>(w + W_A, wd + D_P, pi, ph, c);             // A_k^T W
       __syncwarp();
       if (rv) {
+        float f12[NX];
 #pragma unroll
-        for (int v = 0; v < 3; ++v) {
-          const float4 t = float4{r12[4 * v], r12[4 * v + 1], r12[4 * v + 2],
-                                  r12[4 * v + 3]};
-          *reinterpret_cast<float4*>(w + W_C + ri * NX + 4 * v) = t;
-          *reinterpret_cast<float4*>(st_k + ST_L + ri * NX + 4 * v) = t;
+        for (int v = 0; v < NX; ++v) {
+          wd[D_C + ri * NX + v] = r12[v];
+          f12[v] = (float)r12[v];
         }
-        w[W_LINV + ri] = inv_d;
-        st_k[ST_LINV + ri] = inv_d;
+#pragma unroll
+        for (int v = 0; v < 3; ++v)
+          *reinterpret_cast<float4*>(st_k + ST_L + ri * NX + 4 * v) =
+              float4{f12[4 * v], f12[4 * v + 1], f12[4 * v + 2],
+                     f12[4 * v + 3]};
+        wd[D_PIV + ri] = inv_d;
+        st_k[ST_PIV + ri] = (float)(F64 ? piv_d : inv_d);
       }
-      if (pv) st6(w + W_T + pi * NX, ph, c);
+      if (pv) st6(wd + D_T + pi * NX, ph, c);
       __syncwarp();
       K1_SPAN(4);
       if (rv) {                               // K = -Huu^-1 Hux, column ri
-        float y[NX];
+        FT y[NX];
 #pragma unroll
-        for (int i = 0; i < NX; ++i) y[i] = w[W_H + i * NX + ri];
-        cho_solve_regs(w + W_C, w + W_LINV, y);
+        for (int i = 0; i < NX; ++i) y[i] = wd[D_H + i * NX + ri];
+        cho_solve_regs<false>(wd + D_C, wd + D_PIV, y);
 #pragma unroll
         for (int i = 0; i < NX; ++i) {
-          w[W_P + i * NX + ri] = -y[i];
-          st_k[ST_K + i * NX + ri] = -y[i];
+          wd[D_P + i * NX + ri] = -y[i];
+          st_k[ST_K + i * NX + ri] = (float)-y[i];
         }
       }
       __syncwarp();
       K1_SPAN(5);
-      mm6<false>(w + W_T, w + W_A, pi, ph, c);     // P' = A^T W A + Hux^T K
-      mm6<true>(w + W_H, w + W_P, pi, ph, d);
+      mm6<false>(wd + D_T, w + W_A, pi, ph, c);    // P' = A^T W A + Hux^T K
+      mm6<true>(wd + D_H, wd + D_P, pi, ph, d);
 #pragma unroll
       for (int q = 0; q < 6; ++q) c[q] += d[q];
-      if (pv) st6(w + W_C + pi * NX, ph, c);               // (L is stored)
+      if (pv) st6(wd + D_C + pi * NX, ph, c);              // (L is stored)
       __syncwarp();
 #pragma unroll
       for (int q = 0; q < 6; ++q)                          // P symmetric
-        c[q] = 0.5f * (c[q] + w[W_C + pcol(ph, q) * NX + pi]);
-      if (pv) st6(w + W_P + pi * NX, ph, c);
+        c[q] = (FT)0.5 * (c[q] + wd[D_C + pcol(ph, q) * NX + pi]);
+      if (pv) st6(wd + D_P + pi * NX, ph, c);
     }
     __syncwarp();
 
@@ -750,19 +870,17 @@ extern "C" int riccati_ipm_launch(const float* x0, const float* xref,
                mu,  fz,   u0,  u,         gap,       lam,       scratch,
                qw_stride, rw_stride, mu_stride, fz_stride, B, H, iters, dt};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (H <= SMEM_MAX_H) {
-    const int bytes = WARPS_SMEM * (W_FLOATS + H * ST_PER_STAGE) *
-                      (int)sizeof(float);
-    cudaError_t e = cudaFuncSetAttribute(
-        riccati_ipm_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    riccati_ipm_kernel<true><<<(B + WARPS_SMEM - 1) / WARPS_SMEM,
-                               32 * WARPS_SMEM, bytes, s>>>(a);
-  } else {
-    const int bytes = WARPS_GLOBAL * W_FLOATS * (int)sizeof(float);
-    riccati_ipm_kernel<false><<<(B + WARPS_GLOBAL - 1) / WARPS_GLOBAL,
-                                32 * WARPS_GLOBAL, bytes, s>>>(a);
-  }
+  const bool smem = H <= SMEM_MAX_H, f64 = H >= F64_MIN_H;
+  const int wpb = smem ? WARPS_SMEM : WARPS_GLOBAL;
+  const int bytes = wpb * (work_bytes(f64) +
+                           (smem ? H * ST_PER_STAGE * (int)sizeof(float) : 0));
+  void (*kernel)(Args) = smem ? (f64 ? riccati_ipm_kernel<true, true>
+                                     : riccati_ipm_kernel<true, false>)
+                              : (f64 ? riccati_ipm_kernel<false, true>
+                                     : riccati_ipm_kernel<false, false>);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(B + wpb - 1) / wpb, 32 * wpb, bytes, s>>>(a);
   return (int)cudaGetLastError();
 }

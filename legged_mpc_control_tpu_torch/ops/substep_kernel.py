@@ -187,6 +187,30 @@ def substep_chain_cuda(sim_pos, sim_quat, sim_vel, sim_omega, sim_q, sim_dq,
     if sim_pos.device.type != "cuda":
         raise ValueError(f"tensors on {sim_pos.device}: want cuda (or cpu "
                          "for the plain version)")
+    packed, mode, out = pack(
+        sim_pos, sim_quat, sim_vel, sim_omega, sim_q, sim_dq, sim_contact,
+        sim_anchor, opt_state, opt_input, movement_mode, mass, mu, kp_foot,
+        kd_foot, trunk_inertia, rho_fix, default_foot_pos,
+        gait_counter_speed, contact_thresh, vel_d_rel, kf_type=kf_type,
+        kf_x=kf_x, kf_P=kf_P)
+    B, dev = sim_pos.shape[0], sim_pos.device
+    err = _lib().substep_chain_launch(
+        packed.data_ptr(), mode.data_ptr(), out.data_ptr(), B, int(substeps),
+        float(dt), int(kf_type), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "substep_chain")
+    cuda_build.LAUNCHES["substep_chain_kf1" if kf_type == 1
+                        else "substep_chain"] += 1
+    return unpack(out, kf_type)
+
+
+def pack(sim_pos, sim_quat, sim_vel, sim_omega, sim_q, sim_dq, sim_contact,
+         sim_anchor, opt_state, opt_input, movement_mode, mass, mu, kp_foot,
+         kd_foot, trunk_inertia, rho_fix, default_foot_pos,
+         gait_counter_speed, contact_thresh, vel_d_rel, *, kf_type=0,
+         kf_x=None, kf_P=None):
+    """The kernel's operands: the packed input (rows, B) float32, the
+    movement mode (B,) int32 and an empty output (rows, B), on the tensors'
+    device."""
     B = sim_pos.shape[0]
     dev = sim_pos.device
     args = dict(pos=sim_pos, quat=sim_quat, vel=sim_vel, omega=sim_omega,
@@ -214,14 +238,13 @@ def substep_chain_cuda(sim_pos, sim_quat, sim_vel, sim_omega, sim_q, sim_dq,
     mode = movement_mode.to(torch.int32).contiguous()
     n_out = sum(n for _, n in out_rows)
     out = torch.empty((n_out, B), dtype=torch.float32, device=dev)
+    return packed, mode, out
 
-    err = _lib().substep_chain_launch(
-        packed.data_ptr(), mode.data_ptr(), out.data_ptr(), B, int(substeps),
-        float(dt), int(kf_type), torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "substep_chain")
-    cuda_build.LAUNCHES["substep_chain_kf1" if kf_type == 1
-                        else "substep_chain"] += 1
 
+def unpack(out, kf_type=0):
+    """The kernel's packed output (rows, B) as substep_chain_cuda's dict."""
+    B = out.shape[1]
+    out_rows = OUT_ROWS + (KF_ROWS if kf_type == 1 else ())
     res, off = {}, 0
     for name, n in out_rows:
         res[name] = out[off:off + n].T

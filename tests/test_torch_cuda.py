@@ -34,11 +34,11 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _trot(dev, kf_type):
+def _trot(dev, kf_type, seed=1):
     """A Go1 batch after 20 standing and 10 trotting ticks on the card."""
     params = go1_params(F32, dev)
     pattern = gait.trot_pattern(F32, dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     loop = runner.init_loop_batch(params, B, gen, dtype=F32,
                                   body_height=0.28, device=dev)
     loop, _ = runner.make_batched_rollout(
@@ -57,13 +57,13 @@ def trotting_kf1(dev):
     return _trot(dev, 1)
 
 
-# H=1 and 10 keep K1's per-stage store in shared memory, 13 and 30 in
-# device scratch; B=1 and 5 leave a block with idle warps
-@pytest.mark.parametrize("start", ["cold", "warm"])
-@pytest.mark.parametrize("batch", [1, 5, B])
-@pytest.mark.parametrize("horizon", [1, 10, 13, 30])
-def test_riccati_kernel_matches_plain(trotting, start, batch, horizon):
-    loop, params, pattern = trotting
+def _riccati_case(state, start, batch, horizon):
+    """K1, the plain float32 version and the float64 one on the card
+    test's QP (iters=15, cold or warm from the shifted plain solution).
+    Asserts one launch, finite forces, gaps under 1e-4 and the float64
+    criteria; returns the kernel's and plain's distances to float64, the
+    distance between them and both dual sets."""
+    loop, params, pattern = state
     _, stage = convex_mpc.mpc_prepare(loop.controller, params, pattern,
                                       0.01, horizon=horizon)
     args = tuple(x[:batch] for x in (
@@ -90,7 +90,16 @@ def test_riccati_kernel_matches_plain(trotting, start, batch, horizon):
     p64 = (up.double() - u64).abs().amax(-1)
     assert float(e64.max()) <= 1.5 * float(p64.max()) + 2e-2
     assert float(torch.quantile(e64 - 1.5 * p64, 0.99)) <= 2e-2
-    d = (uk - up).abs().amax(-1)
+    return e64, p64, (uk - up).abs().amax(-1), lk, lp
+
+
+# H=1 and 10 keep K1's per-stage store in shared memory, 13 and 30 in
+# device scratch; B=1 and 5 leave a block with idle warps
+@pytest.mark.parametrize("start", ["cold", "warm"])
+@pytest.mark.parametrize("batch", [1, 5, B])
+@pytest.mark.parametrize("horizon", [1, 10, 13, 30])
+def test_riccati_kernel_matches_plain(trotting, start, batch, horizon):
+    e64, p64, d, lk, lp = _riccati_case(trotting, start, batch, horizon)
     if batch == B:
         # the float32 bracket of chip_smoke.py: 99 % within 2e-2 N of the
         # plain version
@@ -102,6 +111,28 @@ def test_riccati_kernel_matches_plain(trotting, start, batch, horizon):
         # from plain, where plain is 0.155 N from float64 and this kernel
         # and its thread-a-scenario predecessor both 0.053 N (PERF.md).
         assert bool(((d <= 2e-2) | (e64 < p64)).all())
+    assert lk.shape == lp.shape == (batch, horizon, 4, 6)
+
+
+_TROT_SEEDS = {}
+
+
+# The fixture's recipe from other seeds, each side of K1's float64 factor
+# cutoff (H >= 14), both with the store in device scratch. Plain's own 0.99
+# quantile to float64 exceeds 2e-2 N there, so the bracket against plain is
+# scenario-wise: within 2e-2 N of plain, or nearer float64 than plain.
+@pytest.mark.parametrize("start,batch", [("cold", B), ("warm", B),
+                                         ("warm", 5)])
+@pytest.mark.parametrize("horizon", [13, 30])
+@pytest.mark.parametrize("seed", range(2, 9))
+def test_riccati_kernel_matches_plain_seeds(dev, seed, horizon, start,
+                                            batch):
+    if seed not in _TROT_SEEDS:
+        _TROT_SEEDS[seed] = _trot(dev, 0, seed)
+    e64, p64, d, lk, lp = _riccati_case(_TROT_SEEDS[seed], start, batch,
+                                        horizon)
+    near = ((d <= 2e-2) | (e64 < p64)).double().mean()
+    assert float(near) >= (0.99 if batch == B else 1.0)
     assert lk.shape == lp.shape == (batch, horizon, 4, 6)
 
 

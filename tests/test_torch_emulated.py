@@ -1,6 +1,6 @@
-"""The CUDA sources of kernels K1, K4, K5, K6 and K7, compiled as C++ for the
-CPU and run against their plain PyTorch versions: a check of the kernels'
-arithmetic where there is no card.
+"""The CUDA sources of kernels K1-K7, compiled as C++ for the CPU and run
+against their plain PyTorch versions: a check of the kernels' arithmetic
+where there is no card.
 
 The sources are built with g++ under a small emulation of the CUDA
 constructs they use: a block's threads are fibers (ucontext) run in
@@ -15,8 +15,10 @@ synchronous fallbacks, their waits no-ops). The
 `extern "C"` launchers (CUDA's `<<<>>>` syntax) are cut off and replaced by
 launchers that run the blocks in turn. Float32 on both sides, so the
 comparison uses the tolerances of the card's check (chip_smoke.py): K1 its
-2e-2 N GRF bracket and the float64 rule, K4, K5 and K6 relative 1e-5, K7 the
-TPU kernel's bracket against XLA
+2e-2 N GRF bracket and the float64 rule (at H=30 also 2e-2 N to the
+float64 solve that freezes where float32 does), K2 and K3 its state,
+filter and Feedback brackets with equal contacts, K4, K5 and K6 relative
+1e-5, K7 the TPU kernel's bracket against XLA
 (tests/test_ci_fused.py:49-56). K7 runs a block of 192 threads a
 scenario; its cases are the walked-in tick at H=10 and at H=12 (the
 largest horizon the dispatch sends it), and a scenario whose candidates
@@ -31,7 +33,7 @@ import pytest
 import torch
 
 from legged_mpc_control_tpu_torch.config import a1_params, go1_params
-from legged_mpc_control_tpu_torch.control import step
+from legged_mpc_control_tpu_torch.control import sensors, step
 from legged_mpc_control_tpu_torch.mpc import (
     ci_mpc,
     convex_mpc,
@@ -39,7 +41,11 @@ from legged_mpc_control_tpu_torch.mpc import (
     lci_mpc,
     riccati,
 )
-from legged_mpc_control_tpu_torch.ops import chol_kernel, ci_kernel
+from legged_mpc_control_tpu_torch.ops import (
+    chol_kernel,
+    ci_kernel,
+    substep_kernel,
+)
 from legged_mpc_control_tpu_torch.ops.cuda_build import CSRC_DIR
 from legged_mpc_control_tpu_torch.parallel import runner
 
@@ -66,6 +72,7 @@ PRELUDE = r"""
 #define __grid_constant__
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+struct double2 { double x, y; };
 struct Dim { int x; };
 Dim threadIdx, blockIdx, blockDim;      // the running thread's
 typedef int cudaError_t;
@@ -140,7 +147,15 @@ inline float __shfl_sync(unsigned, float x, int src) {
 inline float __shfl_xor_sync(unsigned m, float x, int o) {
   return __shfl_sync(m, x, (threadIdx.x ^ o) & 31);
 }
+static double g_xchg_d[2][1024];
+inline double __shfl_sync(unsigned, double x, int src) {
+  double* buf = g_xchg_d[g_cur->turn ^= 1];
+  buf[threadIdx.x] = x;
+  warp_bar().wait();
+  return buf[(threadIdx.x & ~31) | src];
+}
 using std::isfinite;
+inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 static std::function<void()>* g_body;
 static void fiber_main() {
   (*g_body)();
@@ -240,6 +255,18 @@ extern "C" void chol_factor_emu(const float* K, float* F, int B, int n) {
 }
 """
 
+SUBSTEP_LAUNCH = r"""
+extern "C" void substep_chain_emu(const float* in, const int* mode,
+                                  float* out, int B, int substeps, float dt,
+                                  int kf1) {
+  const int per_warp = THREADS / lanes(kf1);
+  run_blocks((B + per_warp - 1) / per_warp, THREADS, [&]() {
+    if (kf1) substep_chain_kernel<true>(in, mode, out, B, substeps, dt);
+    else substep_chain_kernel<false>(in, mode, out, B, substeps, dt);
+  });
+}
+"""
+
 RICCATI_LAUNCH = r"""
 extern "C" int riccati_ipm_scratch_emu(int H) {
   return H <= SMEM_MAX_H ? 0 : H * ST_PER_STAGE;
@@ -251,11 +278,16 @@ extern "C" void riccati_ipm_emu(const float* x0, const float* xref,
     float* scr, int B, int H, int iters, float dt) {
   const Args a{x0, xref, A, Bm, contact, qw, rw, mu, fz, u0, u, gap, lam,
                scr, qs, rs, ms, fs, B, H, iters, dt};
-  const bool smem = H <= SMEM_MAX_H;
+  const bool smem = H <= SMEM_MAX_H, f64 = H >= F64_MIN_H;
   const int wpb = smem ? WARPS_SMEM : WARPS_GLOBAL;
   run_blocks((B + wpb - 1) / wpb, 32 * wpb, [&]() {
-    if (smem) riccati_ipm_kernel<true>(a);
-    else riccati_ipm_kernel<false>(a);
+    if (smem) {
+      if (f64) riccati_ipm_kernel<true, true>(a);
+      else riccati_ipm_kernel<true, false>(a);
+    } else {
+      if (f64) riccati_ipm_kernel<false, true>(a);
+      else riccati_ipm_kernel<false, false>(a);
+    }
   });
 }
 """
@@ -516,7 +548,7 @@ def riccati_lib(tmp_path_factory):
                     "CPU")
     lib = _emulated("riccati_ipm", RICCATI_LAUNCH,
                     tmp_path_factory.mktemp("emulated_k1"), edits=(
-        ("extern __shared__ float4 smem4[];", "static float4 smem4[4096];"),))
+        ("extern __shared__ float4 smem4[];", "static float4 smem4[8192];"),))
     lib.riccati_ipm_emu.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 3 + [ctypes.c_float])
@@ -585,3 +617,131 @@ def test_k1_emulated_matches_plain(riccati_lib, trot3, horizon, start):
     assert e64 <= 1.5 * p64 + 2e-2
     if start == "cold":
         assert float(gap.max()) < 1e-4
+
+
+def test_k1_emulated_horizon_30(riccati_lib):
+    """K1 at H=30 (its per-stage store in device scratch, its factor sweep
+    in float64) on the card tests' batch recipe at B=8: a Go1 batch (seed 1)
+    after 20 standing and 10 trotting ticks, cold, iters=15. Besides the
+    card test's float64 rule: within the 2e-2 N bracket of the float64
+    solve that freezes where float32 does (tol=1e-6), i.e. the same
+    iterations in exact arithmetic. The kernel is 4e-4 N from it; the plain
+    float32 version, and the port's earlier kernel with its float32 factor
+    sweep, are 0.10 N from it."""
+    f32 = torch.float32
+    params = go1_params(f32, "cpu")
+    pattern = gait.trot_pattern(f32, "cpu")
+    loop = runner.init_loop_batch(params, 8, torch.Generator().manual_seed(1),
+                                  dtype=f32, body_height=0.28, device="cpu")
+    loop, _ = runner.make_batched_rollout(
+        pattern, n_ticks=30, pdip_iters=4, walk_velx=0.15,
+        stand_ticks=20)(loop, params)
+    _, stage = convex_mpc.mpc_prepare(loop.controller,
+                                      step.broadcast_params(params, 8),
+                                      pattern, 0.01, horizon=30)
+    ins = [x.contiguous() for x in (stage.x0, stage.x_ref, stage.A_seq,
+                                    stage.B, stage.contact, stage.q_weights,
+                                    stage.r_weights, stage.mu,
+                                    stage.fz_max)]
+    u, gap = torch.empty((8, 360)), torch.empty(8)
+    lam = torch.empty((8, 30, 4, 6))
+    scr = torch.empty((8, riccati_lib.riccati_ipm_scratch_emu(30)))
+    riccati_lib.riccati_ipm_emu(
+        *[x.data_ptr() for x in ins], 12, 12, 1, 1, None, u.data_ptr(),
+        gap.data_ptr(), lam.data_ptr(), scr.data_ptr(), 8, 30, 15, 0.01)
+    args = tuple(ins) + (0.01,)
+    up = riccati.solve_qp_riccati_batched(*args, iters=15)[0]
+    a64 = tuple(a.double() if torch.is_tensor(a) else a for a in args)
+    u64 = riccati.solve_qp_riccati_batched(*a64, iters=15)[0]
+    u64_freeze = riccati.solve_qp_riccati_batched(*a64, iters=15,
+                                                  tol=1e-6)[0]
+    e64 = (u.double() - u64).abs().amax(-1)
+    p64 = (up.double() - u64).abs().amax(-1)
+    arith = float((u.double() - u64_freeze).abs().max())
+    print(f"H=30 cold, B=8: vs float64 kernel {float(e64.max()):.4f} N, "
+          f"plain {float(p64.max()):.4f} N; vs float64 with tol=1e-6 "
+          f"kernel {arith:.2e} N")
+    assert bool(torch.isfinite(u).all()) and float(gap.max()) < 1e-4
+    assert float(e64.max()) <= 1.5 * float(p64.max()) + 2e-2
+    assert float(torch.quantile(e64 - 1.5 * p64, 0.99)) <= 2e-2
+    assert arith <= 2e-2
+
+@pytest.fixture(scope="module")
+def substep_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ (C++20) to compile the CUDA sources for the "
+                    "CPU")
+    lib = _emulated("substep_chain", SUBSTEP_LAUNCH,
+                    tmp_path_factory.mktemp("emulated_k2"),
+                    edits=(("#include <math.h>",
+                            "#include <math.h>\nusing std::isnan;"),))
+    lib.substep_chain_emu.argtypes = ([ctypes.c_void_p] * 3
+                                      + [ctypes.c_int] * 2
+                                      + [ctypes.c_float, ctypes.c_int])
+    return lib
+
+
+# chip_smoke.py's brackets of K2 and K3 against the plain version
+STATE_TOL = {"pos": 2e-4, "quat": 2e-4, "vel": 2e-3, "omega": 5e-3,
+             "q": 2e-3, "dq": 5e-2, "anchor": 2e-4, "q_tgt": 2e-3,
+             "dq_tgt": 5e-2, "tau_ff": 1e-2, "kf_x": 2e-3}
+FB_TOL = {"euler": 1e-4, "rotmat": 1e-4, "foot_pos_rel": 2e-3,
+          "foot_pos_abs": 2e-3, "foot_vel_rel": 6e-2, "foot_vel_abs": 6e-2,
+          "foot_vel_world": 6e-2, "jac": 2e-3, "foot_force_sensor": 0.5,
+          "contact_sig": 0.05, "contact_bool": 0.0, "force_tau_est": 0.5,
+          "raibert_abs": 2e-3, "imu_acc": 5e-2, "imu_gyro": 5e-3}
+KF_P_TOL = (2e-4, 2e-3)                 # (atol, rtol)
+
+
+# B=5 leaves the last warp ragged: K2 runs two scenarios a warp (16 lanes
+# each), K3 four (8 lanes each)
+@pytest.mark.parametrize("kf_type", [0, 1])
+def test_k2_k3_emulated_match_plain(substep_lib, kf_type):
+    """K2 (kf_type 0) and K3 (kf_type 1) over one tick's 8 substeps from
+    mid-trot (Go1, B=5, 20 standing and 10 trotting ticks; under kf_type 1
+    with the filter in the loop), against the plain version with the
+    brackets of chip_smoke.py: the same contacts in every scenario."""
+    f32, batch = torch.float32, 5
+    params = go1_params(f32, "cpu")
+    pattern = gait.trot_pattern(f32, "cpu")
+    loop = runner.init_loop_batch(params, batch,
+                                  torch.Generator().manual_seed(4),
+                                  height_range=(0.26, 0.30), dtype=f32,
+                                  body_height=0.28, device="cpu")
+    loop, _ = runner.make_batched_rollout(
+        pattern, n_ticks=30, pdip_iters=4, walk_velx=0.15, stand_ticks=20,
+        kf_type=kf_type)(loop, params)
+    pb = step.broadcast_params(params, batch)
+    cs, _ = convex_mpc.mpc_tick_batched(loop.controller, pb, pattern, 0.01,
+                                        horizon=10, iters=4)
+    sim = loop.sim
+    assert 0.0 < float(sim.contact.float().mean()) < 1.0
+    args = (sim.pos, sim.quat, sim.vel, sim.omega, sim.q, sim.dq,
+            sim.contact, sim.anchor, cs.ctrl.optimized_state,
+            cs.ctrl.optimized_input, cs.ctrl.movement_mode, pb.mass, pb.mu,
+            pb.kp_foot, pb.kd_foot, pb.trunk_inertia, pb.rho_fix,
+            pb.default_foot_pos, pb.gait_counter_speed,
+            sensors.contact_threshold(pb), cs.ctrl.root_lin_vel_d_rel)
+    kw = dict(substeps=8, dt=0.00125, kf_type=kf_type)
+    if kf_type == 1:
+        kw.update(kf_x=cs.kf.x, kf_P=cs.kf.P)
+    packed, mode, out = substep_kernel.pack(*args, **{
+        k: v for k, v in kw.items() if k.startswith("kf")})
+    out.fill_(float("nan"))
+    substep_lib.substep_chain_emu(packed.data_ptr(), mode.data_ptr(),
+                                  out.data_ptr(), batch, 8, 0.00125, kf_type)
+    got = substep_kernel.unpack(out, kf_type)
+    want = substep_kernel.substep_chain_plain(*args, **kw)
+    assert bool(torch.isfinite(out).all())      # every row written
+    assert torch.equal(got["contact"], want["contact"])
+    for name, tol in STATE_TOL.items():
+        if name in want:
+            assert float((got[name] - want[name]).abs().max()) <= tol, name
+    for name, (off, n) in substep_kernel.FB_ROWS.items():
+        e = float((got["fb"][:, off:off + n]
+                   - want["fb"][:, off:off + n]).abs().max())
+        assert e <= FB_TOL[name], (name, e)
+    if kf_type == 1:
+        atol, rtol = KF_P_TOL
+        dP = (got["kf_P"] - want["kf_P"]).abs()
+        assert float((dP - rtol * want["kf_P"].abs()).max()) <= atol

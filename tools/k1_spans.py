@@ -1,7 +1,7 @@
 """Where a K1 solve's cycles go, by phase, and what the place of its
 per-stage store costs.
 
-    python3 tools/k1_spans.py [TREE]
+    python3 tools/k1_spans.py [TREE] [--f64]
 
 TREE is a checkout of the port, by default this one. Its
 `csrc/riccati_ipm.cu` is built with nvcc (sm_90a) as it is, and with
@@ -14,7 +14,9 @@ launched through TREE's own wrapper (`ops/riccati_kernel.py`) on the
 synthetic Go1 trot batch of chip_smoke.py at B=4096, H=10, and timed at
 iters=15 cold and at the loop's call, iters=4 warm. Prints each build's
 ptxas lines and times, and each phase's share of the cycles of one iters=15
-cold launch.
+cold launch. With --f64 the first two builds run the factor sweep in
+float64 at every horizon (`-DK1_F64_MIN_H=0`), so that the phases of the
+float64 sweep show at H=10.
 
 The warp-a-scenario source marks its phases with K1_SPAN(n), empty in the
 package's build. The thread-a-scenario kernel of the port's first slices
@@ -153,7 +155,11 @@ def card_name():
 
 
 def main():
-    tree = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else ROOT
+    args = [a for a in sys.argv[1:] if a != "--f64"]
+    # --f64: the builds as is and with spans run the factor sweep in
+    # float64 at every horizon (-DK1_F64_MIN_H=0), H=10 included
+    f64 = ("-DK1_F64_MIN_H=0",) if "--f64" in sys.argv[1:] else ()
+    tree = Path(args[0]).resolve() if args else ROOT
     src = tree / PKG / "csrc" / "riccati_ipm.cu"
     text = src.read_text()
     warp = "K1_SPAN(" in text
@@ -175,8 +181,8 @@ def main():
     work.mkdir(parents=True, exist_ok=True)
     spanned_src = work / "riccati_ipm_spans.cu"
     spanned_src.write_text(spanned + READ)
-    jobs = {"as it is": (src, work / "libk1.so", ()),
-            "with spans": (spanned_src, work / "libk1_spans.so", ())}
+    jobs = {"as it is": (src, work / "libk1.so", f64),
+            "with spans": (spanned_src, work / "libk1_spans.so", f64)}
     if warp:
         jobs["store in device scratch"] = (src, work / "libk1_scratch.so",
                                            ("-DK1_SMEM_MAX_H=0",))
