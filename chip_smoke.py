@@ -18,7 +18,13 @@ MPC (`control/step.closed_loop_tick_lci_batched`, A1, B=256): the flat
 closed loop (K7, K2) with its 24-vs-48-sweep gate, K7 against its plain
 version at B=256 (24 sweeps) and B=1 (32 sweeps), the B=1 CI policy
 latency (K7), and the box-step terrain loop (K4,
-K6) with K4 + K6 against the plain path. Exits non-zero on any failure and
+K6) with K4 + K6 against the plain path. Then BASELINE config 4: the H=30
+solve rate (K1) and the convex closed loop on a height field (A1, B=64,
+standing_trot, H=30; the platform and the stairs of
+tests/test_terrain_walk.py; K1 every tick, the per-substep loop, no K2);
+and the single-robot tick (`control/step.closed_loop_tick`, the condensed
+PDIP on K4 and K5 at B=1) walking dynamic_walk and static_walk as
+tests/test_walk_gaits.py does. Exits non-zero on any failure and
 when no CUDA device is present. Diagnostics go to the earlier
 lines; the second-to-last line is a JSON object of the kernels, the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -529,7 +535,7 @@ def phase_main(dev, card):
     """The main path: gates at B=64 x 120 ticks (bench.py:120-154 on the
     port), then 10 timed walking ticks at B=4096 and the solve rate."""
     from legged_mpc_control_tpu_torch.config import go1_params
-    from legged_mpc_control_tpu_torch.mpc import gait, riccati
+    from legged_mpc_control_tpu_torch.mpc import gait
     from legged_mpc_control_tpu_torch.parallel import runner
 
     f32 = torch.float32
@@ -590,8 +596,24 @@ def phase_main(dev, card):
           f"({card}; real-time bar {B * 100})", flush=True)
     done(t0)
 
-    t0 = phase(f"solve rate: linearize + K1, B={B}, H=10, iters=15")
-    qparams, x0, contact, lin = qp_problem(B, 10, dev)
+    solves = solve_rate(dev, card, 10)
+    return launches, rate, solves, walked
+
+
+# the stance load of the synthetic trot batch: the mean over the batch of
+# the stage-0 vertical forces' sum, as a share of the robot's weight
+STANCE_LOAD = (0.7, 1.3)
+
+
+def solve_rate(dev, card, horizon):
+    """convex_mpc_solves_per_s_per_chip_go1_trot_h{horizon}: linearize + K1
+    on the synthetic Go1 trot QP batch (bench.py:59-75), B=4096, iters=15,
+    over 8 calls of 4 variants; gated on finite forces and a plausible
+    stance load."""
+    from legged_mpc_control_tpu_torch.mpc import riccati
+
+    t0 = phase(f"solve rate: linearize + K1, B={B}, H={horizon}, iters=15")
+    qparams, x0, contact, lin = qp_problem(B, horizon, dev)
     variants = [x0 + 1e-3 * k for k in range(4)]
 
     def solve(x):
@@ -603,16 +625,20 @@ def phase_main(dev, card):
 
     out = solve(variants[0])
     check(bool(torch.isfinite(out).all()), "non-finite GRFs")
+    load = float(out[:, 2::3].sum(-1).mean() / (qparams.mass * 9.8))
+    print(f"   stance load: mean sum of fz {load:.3f} x m g", flush=True)
+    check(STANCE_LOAD[0] < load < STANCE_LOAD[1],
+          f"implausible stance load {load} x m g")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for i in range(8):
         out = solve(variants[i % 4])
     torch.cuda.synchronize()
     solves = B * 8 / (time.perf_counter() - t1)
-    print(f"   convex_mpc_solves_per_s_per_chip_go1_trot_h10 = {solves:.1f} "
-          f"({card})", flush=True)
+    print(f"   convex_mpc_solves_per_s_per_chip_go1_trot_h{horizon} = "
+          f"{solves:.1f} ({card})", flush=True)
     done(t0)
-    return launches, rate, solves, walked
+    return solves
 
 
 KF_TOL = {"kf_x": 2e-3}     # tests/test_substep_fused.py's kf1 bracket
@@ -1464,6 +1490,304 @@ def phase_ci_terrain(dev, card):
     return launches, rate, st
 
 
+# BASELINE config 4 (tests/test_terrain_walk.py): A1 on a height field,
+# standing_trot, H=30, iters=12 warm, 5 standing ticks and 300 walking at
+# 0.15 m/s with the terrain-following height command; B=64 scenarios
+C4_B, C4_H, C4_ITERS = 64, 30, 12
+C4_STAND, C4_WALK, C4_TIMED = 5, 300, 10
+C4_VELX = 0.15
+C4_PASS_MIN = 61        # 95 % of the batch meets the JAX test's assertions
+
+
+def c4_terrains(dev):
+    """The 3 cm platform and the two stairs of tests/test_terrain_walk.py
+    (:71-73, :92-93)."""
+    from legged_mpc_control_tpu_torch.sim import terrain as terrain_mod
+
+    f32 = torch.float32
+    return {"platform": terrain_mod.add_box(
+                terrain_mod.flat(extent=3.0, cell=0.05, dtype=f32,
+                                 device=dev), **BOX),
+            "stairs": terrain_mod.stairs(n_steps=2, step_height=0.025,
+                                         step_depth=0.8, start_x=0.25,
+                                         dtype=f32, device=dev)}
+
+
+def c4_setup(dev, terrain):
+    """The config-4 batch: C4_B A1 scenarios from
+    `runner.init_loop_batch` (seeded, heights 0.29-0.31 m, commanded
+    0.30 m, float32) standing on the height field. Returns (loop, params
+    batched, the standing_trot pattern)."""
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.control import step
+    from legged_mpc_control_tpu_torch.mpc import gait
+    from legged_mpc_control_tpu_torch.parallel import runner
+    from legged_mpc_control_tpu_torch.sim import srb_sim
+
+    f32 = torch.float32
+    params = a1_params(f32, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    loop = runner.init_loop_batch(params, C4_B, gen,
+                                  height_range=(0.29, 0.31), dtype=f32,
+                                  body_height=0.30, device=dev)
+    loop = loop.replace(sim=srb_sim.sim_init(
+        params, loop.sim.pos[:, 2], f32, dev, terrain=terrain))
+    return (loop, step.broadcast_params(params, C4_B),
+            gait.named_pattern("standing_trot", f32, dev))
+
+
+def c4_ticks(loop, warm, params, pattern, terrain, n, walk=True):
+    """n config-4 ticks through `closed_loop_tick_batched(..., terrain=)`;
+    walking ones at C4_VELX with the terrain-following height command
+    (0.3 m over the ground under the trunk). Returns (loop, warm)."""
+    from legged_mpc_control_tpu_torch.control import step
+    from legged_mpc_control_tpu_torch.sim import terrain as terrain_mod
+
+    for _ in range(n):
+        if walk:
+            cs = loop.controller
+            ground = terrain_mod.height_at(terrain, loop.sim.pos[:, :2])
+            loop = loop.replace(controller=cs.replace(joy=cs.joy.replace(
+                velx=torch.full_like(cs.joy.velx, C4_VELX),
+                body_height=0.3 + ground)))
+        loop, warm = step.closed_loop_tick_batched(
+            loop, params, pattern, horizon=C4_H, iters=C4_ITERS,
+            solver="riccati", terrain=terrain, warm=warm)
+    return loop, warm
+
+
+def c4_roll(dev, terrain):
+    """The config-4 closed loop: C4_STAND standing ticks, then C4_WALK
+    walking. Returns (final loop, the kernel launches of the run, ticks)."""
+    loop, params, pattern = c4_setup(dev, terrain)
+    with launch_counts() as launches:
+        loop, warm = c4_ticks(loop, None, params, pattern, terrain,
+                              C4_STAND, walk=False)
+        loop = set_mode(loop, 1)
+        loop, warm = c4_ticks(loop, warm, params, pattern, terrain, C4_WALK)
+    return loop, launches, C4_STAND + C4_WALK
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def c4_assess(loop, terrain, name):
+    """Per scenario, whether it is finite and upright, and whether it meets
+    every assertion of the JAX test on that terrain (tests/
+    test_terrain_walk.py:76-87, :95-100); and the numbers they read."""
+    from legged_mpc_control_tpu_torch.sim import terrain as terrain_mod
+
+    pos, eul = loop.sim.pos, loop.controller.fbk.root_euler
+    ground = terrain_mod.height_at(terrain, pos[:, :2])
+    clear = pos[:, 2] - ground
+    tilt = eul[:, :2].abs().amax(-1)
+    upright = (torch.isfinite(pos).all(-1) & torch.isfinite(eul).all(-1)
+               & (clear > 0.15) & (tilt < 0.5))
+    nums = {"x": pos[:, 0], "ground": ground, "clearance": clear,
+            "tilt": tilt}
+    if name == "platform":
+        anchors = loop.sim.anchor
+        on_top = anchors[..., 0] > 0.25
+        low = torch.where(on_top, anchors[..., 2],
+                          torch.full_like(anchors[..., 2], 1.0))
+        nums["anchor_z_on_top"] = low.amin(-1)
+        ok = ((pos[:, 0] > 0.4) & (ground > 0.025) & (clear > 0.17)
+              & (eul[:, 0].abs() < 0.25) & (eul[:, 1].abs() < 0.25)
+              & (nums["anchor_z_on_top"] > 0.02))
+    else:
+        ok = (pos[:, 0] > 0.26) & (ground > 0.02) & (clear > 0.17)
+    return upright, ok & upright, nums
+
+
+def c4_gate(name):
+    """Config 4's whole recipe on one terrain, in a process of its own (the
+    per-substep loop is host-bound: the four gate runs of the config-4 and
+    single-robot phases go side by side). Returns plain numbers: the
+    launches, the scenarios that pass and stand, the batch's numbers and
+    the worst scenario's."""
+    dev = torch.device("cuda", 0)
+    terrain = c4_terrains(dev)[name]
+    loop, launches, ticks = c4_roll(dev, terrain)
+    upright, ok, nums = c4_assess(loop, terrain, name)
+    worst = int(torch.argmin(nums["x"] + ok.float()))
+    return dict(launches=dict(launches), ticks=ticks, passed=int(ok.sum()),
+                upright=int(upright.sum()),
+                span={k: (float(v.min()), float(v.max()))
+                      for k, v in nums.items()},
+                worst=(worst, {k: float(v[worst]) for k, v in nums.items()}))
+
+
+def c4_timed(dev, name):
+    """Config 4's loop rate, alone on the card: a fresh batch, C4_STAND
+    standing and 3 walking ticks, then C4_TIMED walking ticks timed.
+    Returns (seconds, their launches)."""
+    terrain = c4_terrains(dev)[name]
+    loop, params, pattern = c4_setup(dev, terrain)
+    loop, warm = c4_ticks(loop, None, params, pattern, terrain, C4_STAND,
+                          walk=False)
+    loop = set_mode(loop, 1)
+    loop, warm = c4_ticks(loop, warm, params, pattern, terrain, 3)
+    sync(dev)
+    with launch_counts() as launches:
+        t1 = time.perf_counter()
+        c4_ticks(loop, warm, params, pattern, terrain, C4_TIMED)
+        sync(dev)
+        elapsed = time.perf_counter() - t1
+    return elapsed, launches
+
+
+def check_config4_launches(launches, ticks, what):
+    check(launches.get("riccati_ipm", 0) == ticks,
+          f"config 4 {what}: K1 launched {launches.get('riccati_ipm', 0)} "
+          f"times in {ticks} ticks")
+    check(launches.get("substep_chain", 0) == 0,
+          f"config 4 {what}: the terrain path launched the flat-only K2")
+
+
+# the single-robot tick on tests/test_walk_gaits.py's recipe: A1, H=10,
+# 20 standing and 200 walking ticks at 0.1 m/s, held to that test's
+# assertions (min x, final height band, min height, worst roll/pitch)
+SINGLE_GAITS = {"dynamic_walk": (0.25, 0.45), "static_walk": (0.2, 0.5)}
+SINGLE_STAND, SINGLE_WALK, SINGLE_TIMED = 20, 200, 20
+SINGLE_TIMED_STAND = 3      # standing ticks ahead of the timed walk
+
+
+def single_ticks(dev, name, n_stand, n_walk, timed=0):
+    """One A1 robot (a batch of one, float32) through
+    `step.closed_loop_tick` with the named gait: `n_stand` standing ticks,
+    then `n_walk` walking at 0.1 m/s. Returns (final loop, the worst
+    |roll|, |pitch| and the least height over the walk, the kernel launches
+    of the walk, the last `timed` ticks' seconds each)."""
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.control import step
+    from legged_mpc_control_tpu_torch.mpc import gait
+    from legged_mpc_control_tpu_torch.sim import srb_sim
+
+    f32 = torch.float32
+    params = a1_params(f32, dev)
+    pattern = gait.named_pattern(name, f32, dev)
+    loop = step.LoopState(
+        controller=step.controller_init(params, 1, f32, dev,
+                                        body_height=0.3),
+        sim=srb_sim.sim_init(params, torch.full((1,), 0.3), f32, dev))
+    for _ in range(n_stand):
+        loop = step.closed_loop_tick(loop, params, pattern, horizon=10)
+    loop = set_mode(loop, 1)
+    cs = loop.controller
+    loop = loop.replace(controller=cs.replace(joy=cs.joy.replace(
+        velx=torch.full((1,), 0.1, dtype=f32, device=dev))))
+    eul, z, times = [], [], []
+    sync(dev)
+    with launch_counts() as launches:
+        for k in range(n_walk):
+            t1 = time.perf_counter()
+            loop = step.closed_loop_tick(loop, params, pattern, horizon=10)
+            if k >= n_walk - timed:
+                sync(dev)
+                times.append(time.perf_counter() - t1)
+            eul.append(loop.controller.fbk.root_euler[0, :2])
+            z.append(loop.sim.pos[0, 2])
+    worst_rp = float(torch.stack(eul).abs().max())
+    return loop, worst_rp, float(torch.stack(z).min()), launches, times
+
+
+def single_gate(name):
+    """tests/test_walk_gaits.py's recipe for one gait, in a process of its
+    own; returns plain numbers."""
+    loop, worst_rp, z_min, launches, _ = single_ticks(
+        torch.device("cuda", 0), name, SINGLE_STAND, SINGLE_WALK)
+    p = loop.sim.pos[0]
+    return dict(x=float(p[0]), z=float(p[2]), finite=bool(
+        torch.isfinite(p).all()), z_min=z_min, worst_rp=worst_rp,
+        launches=dict(launches))
+
+
+def phase_config4(dev, card):
+    """BASELINE config 4 on the card: the H=30 solve rate; then the gate
+    runs, side by side in four processes of their own, of the closed loop
+    of tests/test_terrain_walk.py at B=64 on the platform and on the stairs
+    (per-substep loop, K1 every tick, no K2) and of the single-robot tick
+    (`step.closed_loop_tick`, the condensed PDIP on K4 and K5 at B=1) with
+    tests/test_walk_gaits.py's recipe and assertions for dynamic_walk and
+    static_walk; then, alone on the card, each loop's time on a short run
+    of its own: config 4's scenario-ticks/s over 10 walking ticks, and the
+    single-robot tick's median over 20 walking ticks against the 10 ms MPC
+    thread (LeggedParams.h:7), ungated (host-bound)."""
+    import multiprocessing
+
+    solves = solve_rate(dev, card, C4_H)
+    t0 = phase(f"config 4 (A1, B={C4_B}, standing_trot, H={C4_H}, "
+               f"iters={C4_ITERS} warm, {C4_STAND} standing + {C4_WALK} "
+               f"walking ticks at {C4_VELX} m/s) on the platform and the "
+               f"stairs, and the single-robot tick (A1, H=10, PDIP 15, "
+               f"{SINGLE_STAND} standing + {SINGLE_WALK} walking ticks) "
+               f"with {' and '.join(SINGLE_GAITS)}: four processes")
+    with concurrent.futures.ProcessPoolExecutor(
+            4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        c4 = {n: pool.submit(c4_gate, n) for n in ("platform", "stairs")}
+        single = {n: pool.submit(single_gate, n) for n in SINGLE_GAITS}
+        c4 = {n: f.result() for n, f in c4.items()}
+        single = {n: f.result() for n, f in single.items()}
+    for name, r in c4.items():
+        print(f"   config 4 on the {name}: kernel launches over "
+              f"{r['ticks']} ticks {r['launches']}; {r['passed']} of {C4_B} "
+              f"scenarios meet every assertion of the JAX test, upright "
+              f"{r['upright']}; over the batch " + ", ".join(
+                  f"{k} [{lo:.4f}, {hi:.4f}]"
+                  for k, (lo, hi) in r["span"].items()), flush=True)
+        idx, w = r["worst"]
+        print(f"   worst scenario {idx}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in w.items()), flush=True)
+    for name, r in single.items():
+        print(f"   single-robot {name}: kernel launches over the walk "
+              f"{r['launches']}; x {r['x']:.4f} m, z {r['z']:.4f} m, min z "
+              f"{r['z_min']:.4f} m, worst |roll|,|pitch| "
+              f"{r['worst_rp']:.4f} rad", flush=True)
+    for name, r in c4.items():
+        check_config4_launches(r["launches"], r["ticks"], f"on the {name}")
+        check(r["upright"] == C4_B, f"config 4 on the {name}: a scenario "
+              "is not finite or not upright")
+        check(r["passed"] >= C4_PASS_MIN,
+              f"config 4 on the {name}: {r['passed']} of {C4_B} meet the "
+              "JAX test's assertions")
+    for name, r in single.items():
+        x_min, rp_max = SINGLE_GAITS[name]
+        check_launched(r["launches"], ("chol_factor", "chol_solve"),
+                       f"single-robot {name}")
+        check(r["finite"], f"{name}: non-finite")
+        check(r["x"] > x_min, f"{name}: x {r['x']} <= {x_min}")
+        check(0.2 < r["z"] < 0.35, f"{name}: z {r['z']}")
+        check(r["z_min"] > 0.18, f"{name}: min z {r['z_min']}")
+        check(r["worst_rp"] < rp_max,
+              f"{name}: worst roll/pitch {r['worst_rp']}")
+    done(t0)
+
+    t0 = phase("config 4 and the single-robot tick timed, alone on the "
+               "card")
+    rates = {}
+    for name in c4:
+        elapsed, launches = c4_timed(dev, name)
+        check_config4_launches(launches, C4_TIMED, f"timed, on the {name}")
+        rates[name] = C4_B * C4_TIMED / elapsed
+        print(f"   closed_loop_scenario_ticks_per_s_b64_h30_terrain, "
+              f"{name} = {rates[name]:.1f} ({card}; diagnostic; "
+              f"{elapsed / C4_TIMED * 1e3:.2f} ms a tick over {C4_TIMED} "
+              f"walking ticks; launches {dict(launches)})", flush=True)
+    for name in SINGLE_GAITS:
+        *_, launches, times = single_ticks(dev, name, SINGLE_TIMED_STAND,
+                                           SINGLE_TIMED, SINGLE_TIMED)
+        check_launched(launches, ("chol_factor", "chol_solve"),
+                       f"single-robot {name}, timed")
+        print(f"   single_robot_tick_ms_{name} = "
+              f"{float(np.median(times)) * 1e3:.2f} (median of "
+              f"{SINGLE_TIMED} walking ticks; {card}; the MPC thread's "
+              "budget 10 ms)", flush=True)
+    done(t0)
+    return solves, rates
+
+
 def phase_k6(dev, card, st):
     """Kernels K4 and K6 on the gain solve of one backward stage of the
     walked-in box-step solve at B=256, Quu_r and [Qu | Qux_r] as the terrain
@@ -1588,6 +1912,7 @@ def main():
     phase_ci_latency(dev, card)
     terrain_launches, _, terrain_state = phase_ci_terrain(dev, card)
     k6 = phase_k6(dev, card, terrain_state)
+    phase_config4(dev, card)
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
     # the main path's shape, B=4096 and n=120, on the early matrices: the

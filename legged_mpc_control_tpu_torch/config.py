@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from legged_mpc_control_tpu_torch import constants as C
 from legged_mpc_control_tpu_torch.tree import Struct
 
 
@@ -119,6 +120,103 @@ def go1_params(dtype=torch.float32, device="cuda") -> RobotParams:
         kd_foot=f([1.5, 1.5, 1.5]),
         foot_sensor_max=f(300.0),
     )
+
+
+# The keys a flat config file may hold: what `load_yaml_params` reads, and
+# the run-level switches the files carry for the launcher (mpc_type,
+# kf_type), which the loader leaves to it.
+_YAML_KEYS = frozenset(
+    ["robot_type", "mpc_type", "kf_type", "a1_robot_mass",
+     "a1_trunk_inertia_xx", "a1_trunk_inertia_yy", "a1_trunk_inertia_zz",
+     "gait_counter_speed", "foot_sensor_min_value", "foot_sensor_max_value",
+     "foot_sensor_ratio", "joystick_max_height", "joystick_min_height"]
+    + [f"{w}_weights_{i}" for w in "qr" for i in range(12)]
+    + [f"default_foot_pos_{leg}_{ax}" for leg in C.LEG_NAMES for ax in "xyz"]
+    + [f"k{g}_foot_{ax}" for g in "pd" for ax in "xyz"])
+
+
+def _yaml_scalar(text, where):
+    """A plain scalar of a flat config file: an int or a float."""
+    try:
+        return int(text)
+    except ValueError:
+        pass
+    try:
+        return float(text)
+    except ValueError:
+        raise ValueError(f"{where}: {text!r} is not a number") from None
+
+
+def _read_flat_yaml(path) -> dict:
+    """The `key: value` pairs of a flat config file (`configs/*.yaml`): one
+    numeric scalar a line, `#` comments and blank lines skipped. Anything
+    else (nesting, lists, flow or block scalars, unknown keys, a key twice)
+    raises ValueError rather than being read some other way."""
+    raw = {}
+    with open(path) as fh:
+        for n, line in enumerate(fh, 1):
+            where = f"{path}:{n}"
+            body = line.split("#", 1)[0].rstrip()
+            if not body.strip():
+                continue
+            if body[0].isspace():
+                raise ValueError(f"{where}: nested entries are not supported")
+            key, sep, value = body.partition(":")
+            key, value = key.strip(), value.strip()
+            if not sep or not value:
+                raise ValueError(f"{where}: want 'key: number', got "
+                                 f"{body.strip()!r}")
+            if key not in _YAML_KEYS:
+                raise ValueError(f"{where}: unknown key {key!r}")
+            if key in raw:
+                raise ValueError(f"{where}: {key!r} given twice")
+            raw[key] = _yaml_scalar(value, where)
+    return raw
+
+
+def load_yaml_params(path, dtype=torch.float32,
+                     device="cuda") -> RobotParams:
+    """RobotParams from a reference-style flat config file (the reference's
+    config tier 2, LeggedState.cpp:20-209): `robot_type` 0 (A1) or 1 (Go1)
+    picks the defaults, and every key the file gives overrides its leaf.
+    The files are parsed by `_read_flat_yaml`, not by a YAML library."""
+    raw = _read_flat_yaml(path)
+    base = (a1_params if raw.get("robot_type", 0) == 0 else go1_params)(
+        dtype, device)
+
+    def get(name, default):
+        return raw.get(name, float(default))
+
+    def f(v):
+        return torch.tensor(v, dtype=dtype, device=base.mass.device)
+    q = [get(f"q_weights_{i}", base.q_weights[i]) for i in range(12)]
+    r = [get(f"r_weights_{i}", base.r_weights[i]) for i in range(12)]
+    dfp = [[get(f"default_foot_pos_{leg}_{ax}", base.default_foot_pos[i, j])
+            for j, ax in enumerate("xyz")]
+           for i, leg in enumerate(C.LEG_NAMES)]
+    inertia = torch.diag(f([
+        get(f"a1_trunk_inertia_{ax}{ax}", base.trunk_inertia[i, i])
+        for i, ax in enumerate("xyz")]))
+    return base.replace(
+        mass=f(get("a1_robot_mass", base.mass)),
+        trunk_inertia=inertia,
+        q_weights=f(q),
+        r_weights=f(r),
+        gait_counter_speed=f(get("gait_counter_speed",
+                                 base.gait_counter_speed)),
+        default_foot_pos=f(dfp),
+        kp_foot=f([get(f"kp_foot_{a}", base.kp_foot[i])
+                   for i, a in enumerate("xyz")]),
+        kd_foot=f([get(f"kd_foot_{a}", base.kd_foot[i])
+                   for i, a in enumerate("xyz")]),
+        foot_sensor_min=f(get("foot_sensor_min_value",
+                              base.foot_sensor_min)),
+        foot_sensor_max=f(get("foot_sensor_max_value",
+                              base.foot_sensor_max)),
+        foot_sensor_ratio=f(get("foot_sensor_ratio",
+                                base.foot_sensor_ratio)),
+        max_body_height=f(get("joystick_max_height", base.max_body_height)),
+        min_body_height=f(get("joystick_min_height", base.min_body_height)))
 
 
 def params_from_numpy(mapping, device=None, dtype=None) -> RobotParams:

@@ -10,12 +10,14 @@ with 8 = MPC_UPDATE_FREQUENCY / LOW_LEVEL_CTRL_FREQUENCY (LeggedParams.h:7-8).
 The MPC solve is kernel K1 (solver "riccati") or the condensed PDIP / ADMM
 solvers over kernels K4/K5 (`mpc/convex_mpc.py`); the fused substep chain is
 kernel K2 (kf_type 0) or K3 (kf_type 1, the 18-state KF in every substep),
-`ops/substep_kernel.py`. CPU tensors run the plain versions. Ported:
-kf_type 0 (ground-truth feedback) and 1 (the linear KF), low_level_type 0
-(J^T tau control), flat ground for the convex MPC tick; the
-contact-implicit MPC tick (`closed_loop_tick_lci_batched`, the CI engine of
-`mpc/ci_mpc.py` behind the LCI seam of `mpc/lci_mpc.py`) also on a height
-field.
+`ops/substep_kernel.py`. CPU tensors run the plain versions. On a height
+field the substeps run as the per-substep loop of the ported modules, with
+the terrain in the sim step and the footholds. `closed_loop_tick` is the
+single-robot tick (a batch of one) through the unbatched condensed PDIP.
+Ported: kf_type 0 (ground-truth feedback) and 1 (the linear KF),
+low_level_type 0 (J^T tau control); the contact-implicit MPC tick
+(`closed_loop_tick_lci_batched`, the CI engine of `mpc/ci_mpc.py` behind the
+LCI seam of `mpc/lci_mpc.py`).
 """
 
 from dataclasses import dataclass
@@ -95,6 +97,12 @@ def _check_kf_type(kf_type):
         raise NotImplementedError(
             f"kf_type {kf_type} is not ported yet; 0 (ground truth) and 1 "
             "(the linear KF) are")
+
+
+def _check_low_level_type(low_level_type):
+    if low_level_type != 0:
+        raise NotImplementedError(
+            f"low_level_type {low_level_type} is not ported yet")
 
 
 def _sensed(fbk, ctrl, sensors_raw, params: RobotParams, ground_truth):
@@ -186,9 +194,7 @@ def lowlevel_update(cs: ControllerState, params: RobotParams,
                     low_level_type: int = 0):
     """Control-thread body (reference: GazeboInterface.cpp:63-88):
     returns (cs', tau (B,12), safe (B,)). low_level_type 0 only."""
-    if low_level_type != 0:
-        raise NotImplementedError(
-            f"low_level_type {low_level_type} is not ported yet")
+    _check_low_level_type(low_level_type)
     ctrl, tau, safe = _lowlevel(cs.fbk, cs.ctrl, params)
     return cs.replace(ctrl=ctrl), tau, safe
 
@@ -318,14 +324,54 @@ def _substep_chain(cs: ControllerState, sim: srb_sim.SimState,
         anchor=out["anchor"], last_acc=out["last_acc"])
 
 
+def _substep_loop(cs: ControllerState, sim: srb_sim.SimState,
+                  params: RobotParams, substeps, dt, kf_type, terrain):
+    """The substeps of a tick as the per-substep loop of the ported modules:
+    low level, sim step, sensors and feedback, on `terrain` (a height
+    field, or None for flat ground). Returns (cs', sim')."""
+    for _ in range(substeps):
+        cs, tau, _safe = lowlevel_update(cs, params)
+        sim = srb_sim.sim_step(sim, tau, params, dt, terrain=terrain)
+        grf_n = _anchored_normal_force(cs.ctrl.joint_tau_tgt, sim, params)
+        cs = feedback_update(cs, _sim_sensors(sim, params, grf_n), params,
+                             dt, kf_type=kf_type, terrain=terrain)
+    return cs, sim
+
+
+def closed_loop_tick(loop: LoopState, params: RobotParams,
+                     pattern: gait_mod.GaitPattern, *, horizon: int = 10,
+                     substeps: int = C.SUBSTEPS_PER_MPC_TICK,
+                     kf_type: int = 0, low_level_type: int = 0,
+                     terrain=None, pdip_iters: int = 15) -> LoopState:
+    """One MPC period of one robot, the CLI's and the hardware loop's tick:
+    feedback, `convex_mpc.mpc_tick` (the condensed QP through the unbatched
+    `pdip.solve_qp_pdip`, cold) and the per-substep loop. `loop` carries a
+    leading axis of 1 on every leaf; `params` are shared or batched by one;
+    `terrain` a `sim.terrain.Terrain` height field (box-stepping, stairs)
+    or None. Returns loop'."""
+    _check_kf_type(kf_type)
+    _check_low_level_type(low_level_type)
+    dt_ll = C.MPC_DT / substeps
+    params = broadcast_params(params, 1)
+    cs = loop.controller
+    grf_n = _anchored_normal_force(cs.ctrl.joint_tau_tgt, loop.sim, params)
+    cs = feedback_update(cs, _sim_sensors(loop.sim, params, grf_n), params,
+                         dt_ll, kf_type=kf_type, terrain=terrain)
+    cs = convex_mpc.mpc_tick(cs, params, pattern, C.MPC_DT, horizon=horizon,
+                             pdip_iters=pdip_iters)
+    cs, sim = _substep_loop(cs, loop.sim, params, substeps, dt_ll, kf_type,
+                            terrain)
+    return LoopState(controller=cs, sim=sim)
+
+
 def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
                              pattern: gait_mod.GaitPattern, *,
                              horizon: int = 10,
                              substeps: int = C.SUBSTEPS_PER_MPC_TICK,
                              kf_type: int = 0, iters: int = 15,
                              solver: str = "riccati",
-                             low_level_type: int = 0, warm=None,
-                             fused_substeps: bool = True,
+                             low_level_type: int = 0, terrain=None,
+                             warm=None, fused_substeps: bool = True,
                              carry_feedback: bool = False):
     """One scenario-batched closed-loop tick.
 
@@ -333,33 +379,35 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
     RobotParams batched on every leaf (`broadcast_params`); solver:
     "riccati", "pdip" or "admm" (`convex_mpc.mpc_tick_batched`); warm: the
     previous tick's warm start (the (B, 12H) solution, or the ADMM warm
-    tuple), or None.
+    tuple), or None; terrain: a `sim.terrain.Terrain` height field shared
+    by the batch, or None for flat ground.
 
     fused_substeps: run the 8 substeps as one substep chain (kernel K2, or
     K3 with the in-chain KF under kf_type 1, on CUDA; the plain version on
-    CPU); False runs the per-substep loop of the ported modules.
+    CPU); False runs the per-substep loop of the ported modules. A height
+    field always takes the per-substep loop, whose sim step and footholds
+    read it (the chain knows flat ground only), as the JAX package does.
     carry_feedback (fused only): the previous tick's chain already left a
     complete Feedback, so the opening feedback pass is skipped (seed the
     first tick with `seed_batched_feedback`).
 
     Returns (loop', warm')."""
     _check_kf_type(kf_type)
-    if low_level_type != 0:
-        raise NotImplementedError(
-            f"low_level_type {low_level_type} is not ported yet")
+    _check_low_level_type(low_level_type)
     dt_mpc = C.MPC_DT
     dt_ll = dt_mpc / substeps
+    fused = fused_substeps and terrain is None
     cs = loop.controller
-    if not (carry_feedback and fused_substeps):
+    if not (carry_feedback and fused):
         grf_n = _anchored_normal_force(cs.ctrl.joint_tau_tgt, loop.sim,
                                        params)
         cs = feedback_update(cs, _sim_sensors(loop.sim, params, grf_n),
-                             params, dt_ll, kf_type=kf_type)
+                             params, dt_ll, kf_type=kf_type, terrain=terrain)
     cs, warm = convex_mpc.mpc_tick_batched(
         cs, params, pattern, dt_mpc, horizon=horizon, iters=iters,
         solver=solver, warm=warm)
 
-    if fused_substeps:
+    if fused:
         out, sim = _substep_chain(cs, loop.sim, params, substeps, dt_ll,
                                   kf_type)
         if kf_type == 1:
@@ -373,13 +421,8 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
                 joint_tau_tgt=out["tau_ff"]))
         return LoopState(controller=cs, sim=sim), warm
 
-    sim = loop.sim
-    for _ in range(substeps):
-        cs, tau, _safe = lowlevel_update(cs, params)
-        sim = srb_sim.sim_step(sim, tau, params, dt_ll)
-        grf_n = _anchored_normal_force(cs.ctrl.joint_tau_tgt, sim, params)
-        cs = feedback_update(cs, _sim_sensors(sim, params, grf_n), params,
-                             dt_ll, kf_type=kf_type)
+    cs, sim = _substep_loop(cs, loop.sim, params, substeps, dt_ll, kf_type,
+                            terrain)
     return LoopState(controller=cs, sim=sim), warm
 
 
@@ -415,11 +458,5 @@ def closed_loop_tick_lci_batched(loop: LoopState, lci_state, params:
             joint_tau_tgt=out["tau_ff"]))
         return LoopState(controller=cs, sim=sim), lci_state
 
-    sim = loop.sim
-    for _ in range(substeps):
-        cs, tau, _safe = lowlevel_update(cs, pb)
-        sim = srb_sim.sim_step(sim, tau, pb, dt_ll, terrain=terrain)
-        grf_n = _anchored_normal_force(cs.ctrl.joint_tau_tgt, sim, pb)
-        cs = feedback_update(cs, _sim_sensors(sim, pb, grf_n), pb, dt_ll,
-                             terrain=terrain)
+    cs, sim = _substep_loop(cs, loop.sim, pb, substeps, dt_ll, 0, terrain)
     return LoopState(controller=cs, sim=sim), lci_state

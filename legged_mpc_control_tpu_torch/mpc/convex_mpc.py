@@ -5,6 +5,8 @@ the reference's ConvexMpc::update, ConvexMpc.cpp:24-108).
 contact prediction, reference and linearization) for the whole batch,
 `mpc_tick_batched` solves all scenarios' QPs in one solver call and
 `mpc_finish` packs the GRFs and foot targets for the low-level control.
+`mpc_tick` is the single-robot tick (a batch of one) with the unbatched
+condensed PDIP.
 Solvers: "riccati" (the stagewise IPM, kernel K1 on CUDA), "pdip" and
 "admm" (the condensed dense QP of `qp_builder.py`, factored and solved by
 kernels K4/K5 on CUDA).
@@ -143,6 +145,28 @@ def build_condensed_from_stage(stage: StageQP, dt) -> qp_builder.CondensedQP:
     return qp_builder.build_condensed_qp(
         stage.x0, stage.x_ref, stage.A_seq, stage.B, stage.contact,
         stage.q_weights, stage.r_weights, stage.mu, stage.fz_max, dt)
+
+
+def mpc_tick(state: ControllerState, params: RobotParams,
+             pattern: gait_mod.GaitPattern, dt, *, horizon: int,
+             pdip_iters: int = 18) -> ControllerState:
+    """One MPC update of one robot (reference: the 100 Hz thread body,
+    ConvexMpc.cpp:24-62), the CLI's and the hardware loop's path: `state`
+    and `params` carry a leading axis of 1 (`step.broadcast_params`); the
+    QP is condensed and solved by `pdip.solve_qp_pdip` (cold, `pdip_iters`
+    iterations)."""
+    if state.fbk.root_pos.shape[0] != 1:
+        raise ValueError("mpc_tick serves one robot (a leading axis of 1); "
+                         "use mpc_tick_batched for a batch")
+    state, stage = mpc_prepare(state, params, pattern, dt, horizon=horizon)
+    qp = build_condensed_from_stage(stage, dt)
+    res = pdip.solve_qp_pdip(qp.P[0], qp.q[0], qp.mu.reshape(-1)[0],
+                             qp.fz_max.reshape(-1)[0],
+                             contact=qp.contact[0], iters=pdip_iters)
+    grf = res.u[None, 0:12]
+    # NaN guard (reference: ConvexQPSolver.cpp:321-326)
+    grf = torch.where(torch.isnan(grf).any(), torch.zeros_like(grf), grf)
+    return mpc_finish(state, grf)
 
 
 def mpc_tick_batched(states: ControllerState, params: RobotParams,

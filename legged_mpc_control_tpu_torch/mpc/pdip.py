@@ -4,7 +4,8 @@ operators it shares with the Riccati and ADMM solvers.
 
 `solve_qp_pdip_batched` is a Mehrotra predictor-corrector method with a
 fixed iteration count: scenarios that converge (or whose directions go
-non-finite) freeze. Each iteration factors the Newton matrix
+non-finite) freeze. `solve_qp_pdip` solves one QP, the single-robot tick's,
+as a batch of one. Each iteration factors the Newton matrix
 P + G^T D G + reg I once (kernel K4 on CUDA tensors) and solves it twice
 (kernel K5), `ops/chol_kernel.py`; CPU tensors take the plain versions.
 G is never built: its 6 rows per (step, leg) touch only that leg's forces.
@@ -111,6 +112,23 @@ def _block_diag_add(M, blocks, diag):
     return K
 
 
+def solve_qp_pdip(P, q, mu, fz_max, *, contact, iters=18, tol=None):
+    """PDIP on one condensed QP: min 1/2 u^T P u + q^T u under the friction
+    and force-cap rows, P (n, n), q (n,), mu and fz_max scalars, contact
+    (H, 4).
+
+    A view of `solve_qp_pdip_batched` at B=1 (kernels K4 and K5 on a CUDA
+    tensor): the same iteration, with the freeze of the JAX package's
+    unbatched solve, on the gap and the primal residual only. A Newton
+    matrix that is not positive definite factors to NaN, and its
+    non-finite direction freezes the iterate, as JAX's NaN factor does.
+    Returns PdipResult with unbatched fields."""
+    res = _solve(P[None], q[None], mu, fz_max, contact[None], iters=iters,
+                 tol=tol, warm_u=None, dual_freeze=False)
+    return PdipResult(u=res.u[0], gap=res.gap[0], r_dual=res.r_dual[0],
+                      iters=iters)
+
+
 def solve_qp_pdip_batched(P, q, mu, fz_max, contact, *, iters=18, tol=None,
                           warm_u=None):
     """Batched PDIP on the condensed QP: P (B,n,n), q (B,n), contact
@@ -122,6 +140,14 @@ def solve_qp_pdip_batched(P, q, mu, fz_max, contact, *, iters=18, tol=None,
     setWarmStart(true) (ConvexQPSolver.cpp:185).
 
     Returns PdipResult with batched fields."""
+    return _solve(P, q, mu, fz_max, contact, iters=iters, tol=tol,
+                  warm_u=warm_u, dual_freeze=True)
+
+
+def _solve(P, q, mu, fz_max, contact, *, iters, tol, warm_u, dual_freeze):
+    """The batched iteration. dual_freeze: the dual residual gates the
+    freeze too (the batched solve's rule), else the gap and the primal
+    residual alone (the unbatched solve's)."""
     B, n = q.shape
     H = n // 12
     dtype = P.dtype
@@ -195,11 +221,13 @@ def solve_qp_pdip_batched(P, q, mu, fz_max, contact, *, iters=18, tol=None,
         a_p = 0.99 * max_step(s, ds)
         a_d = 0.99 * max_step(lam, dlam)
 
-        # all three residuals gate the freeze (a warm-started iterate can
-        # hold tiny complementarity with an unconverged dual residual)
+        # the batched rule: all three residuals gate the freeze (a
+        # warm-started iterate can hold tiny complementarity with an
+        # unconverged dual residual)
         conv = ((mu_gap < tol)
-                & (r_prim.reshape(B, -1).abs().amax(dim=-1) < 1e3 * tol)
-                & (r_dual.abs().amax(dim=-1) < 1e3 * tol))
+                & (r_prim.reshape(B, -1).abs().amax(dim=-1) < 1e3 * tol))
+        if dual_freeze:
+            conv = conv & (r_dual.abs().amax(dim=-1) < 1e3 * tol)
         # a non-finite direction (float32 factorization past the freeze
         # point) freezes the scenario at its last good iterate
         bad = ~(torch.isfinite(du).all(dim=-1)

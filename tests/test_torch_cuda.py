@@ -280,6 +280,60 @@ def test_kf1_rollout_launches_the_kf1_chain(trotting_kf1):
                  .abs().mean()) < 0.025
 
 
+def test_terrain_tick_launches_k1_only(dev):
+    """BASELINE config 4's tick: on a height field the batched tick takes
+    the per-substep loop, so K1 runs once a tick and K2 never."""
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.sim import srb_sim
+    from legged_mpc_control_tpu_torch.sim import terrain as terrain_mod
+
+    params = a1_params(F32, dev)
+    box = terrain_mod.add_box(terrain_mod.flat(3.0, 0.05, F32, dev),
+                              (1.3, 0.0), (2.2, 2.0), 0.03)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    loop = runner.init_loop_batch(params, 8, gen, dtype=F32, device=dev)
+    loop = loop.replace(sim=srb_sim.sim_init(params, loop.sim.pos[:, 2],
+                                             F32, dev, terrain=box))
+    pattern = gait.named_pattern("standing_trot", F32, dev)
+    pb = step.broadcast_params(params, 8)
+    warm = None
+    cuda_build.LAUNCHES.clear()
+    for _ in range(3):
+        loop, warm = step.closed_loop_tick_batched(
+            loop, pb, pattern, horizon=30, iters=12, terrain=box, warm=warm)
+    assert cuda_build.LAUNCHES == {"riccati_ipm": 3}
+    assert bool(torch.isfinite(loop.sim.pos).all())
+    assert bool(torch.isfinite(warm).all())
+
+
+def test_single_robot_tick_on_the_card(dev):
+    """The single-robot tick (a batch of one): the condensed PDIP on K4 and
+    K5 at B=1, 15 iterations a tick, and the per-substep loop."""
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.sim import srb_sim
+
+    params = a1_params(F32, dev)
+    pattern = gait.trot_pattern(F32, dev)
+    loop = step.LoopState(
+        controller=step.controller_init(params, 1, F32, dev),
+        sim=srb_sim.sim_init(params, torch.full((1,), 0.3), F32, dev))
+    cuda_build.LAUNCHES.clear()
+    for k in range(6):
+        if k == 3:
+            cs = loop.controller
+            loop = loop.replace(controller=cs.replace(
+                ctrl=cs.ctrl.replace(movement_mode=torch.ones_like(
+                    cs.ctrl.movement_mode)),
+                joy=cs.joy.replace(velx=torch.full_like(cs.joy.velx,
+                                                        0.25))))
+        loop = step.closed_loop_tick(loop, params, pattern)
+    assert cuda_build.LAUNCHES == {"chol_factor": 6 * 15,
+                                   "chol_solve": 6 * 30}
+    assert bool(torch.isfinite(loop.sim.pos).all())
+    assert bool(torch.isfinite(loop.controller.ctrl.optimized_input).all())
+    assert 0.2 < float(loop.sim.pos[0, 2]) < 0.4
+
+
 # --- the contact-implicit slice: K6, K7 and the CI dispatch --------------
 
 # (24, 25) is the gain-solve shape of the CI backward pass (X in

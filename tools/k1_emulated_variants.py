@@ -1,25 +1,27 @@
-"""Where K1's float32 digits go at H=30: the CPU emulation of the kernel's
-own arithmetic, one piece at a time in float64.
+"""Where K1's float32 digits go: the CPU emulation of the kernel's own
+arithmetic, one piece at a time in float64.
 
     python3 tools/k1_emulated_variants.py [--seeds 1-2] [--batch 64]
-                                          [--procs 8]
+                                          [--procs 8] [--horizon 30]
 
 Builds `csrc/riccati_ipm.cu` with g++ under the CUDA emulation of
 `tests/test_torch_emulated.py` (a block's threads as fibers, FMA
 contraction on, as nvcc does) in four variants:
 - "f32": the factor sweep in float32, the LQR's triangular solves
-  multiplying by stored reciprocals of the pivots (the parent's kernel);
+  multiplying by stored reciprocals of the pivots (the package's kernel at
+  H <= 13);
 - "f32, divide": the same, the LQR's solves dividing by the pivots;
 - "f64 factor": the factor sweep in float64, the LQR's solves multiplying;
 - "f64 factor, divide": the package's kernel at H >= 14.
 Each runs the first `--batch` scenarios of the card tests' fixture recipe
 (a Go1 batch of 257 after 20 standing and 10 trotting ticks, made here on
-the CPU with the plain versions, generator seeded with the seed) at H=30,
-iters=15, cold and warm from the shifted plain solution. Prints, for each
-variant and for the plain float32 version, the largest and median distance
-to the float64 solve that freezes where float32 does (tol=1e-6: the same
-iterations in exact arithmetic), and how many scenarios are more than
-2e-2 N from it. The scenarios are spread over `--procs` processes.
+the CPU with the plain versions, generator seeded with the seed) at
+`--horizon`, iters=15, cold and warm from the shifted plain solution.
+Prints, for each variant and for the plain float32 version, the largest
+and median distance to the float64 solve that freezes where float32 does
+(tol=1e-6: the same iterations in exact arithmetic), and how many
+scenarios are more than 2e-2 N from it. The scenarios are spread over
+`--procs` processes.
 """
 
 import argparse
@@ -93,6 +95,7 @@ def main():
     ap.add_argument("--seeds", default="1-2")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--procs", type=int, default=8)
+    ap.add_argument("--horizon", type=int, default=30)
     opt = ap.parse_args()
     torch.set_num_threads(1)
 
@@ -118,7 +121,7 @@ def main():
             stand_ticks=20)(loop, params)
         _, stage = convex_mpc.mpc_prepare(
             loop.controller, step.broadcast_params(params, 257), pattern,
-            0.01, horizon=30)
+            0.01, horizon=opt.horizon)
         ins = [x[:opt.batch].contiguous() for x in (
             stage.x0, stage.x_ref, stage.A_seq, stage.B, stage.contact,
             stage.q_weights, stage.r_weights, stage.mu, stage.fz_max)]
@@ -149,7 +152,8 @@ def main():
             print(f"seed {seed} {start}: " + ", ".join(
                 f"{n} {float(e[-1].max()):.4f}" for n, e in errs.items()),
                 flush=True)
-    print(f"distance to the float64 solve with float32's freeze (N), H=30, "
+    print(f"distance to the float64 solve with float32's freeze (N), "
+          f"H={opt.horizon}, "
           f"seeds {opt.seeds}, {opt.batch} scenarios each, cold and warm:")
     for name, e in errs.items():
         e = torch.cat(e)

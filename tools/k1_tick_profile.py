@@ -1,6 +1,7 @@
 """Where a tick of the batched Go1 trot loop goes, on the card.
 
     python3 tools/k1_tick_profile.py [--kf-type 0|1] [--solver pdip|admm]
+    python3 tools/k1_tick_profile.py --config4 platform|stairs
 
 Walks chip_smoke.py's batch (B=4096) in as its timed main path does (30
 ticks, the last 10 trotting at 0.15 m/s; H=10, Riccati with iters=4 warm),
@@ -10,7 +11,13 @@ chain's wrapper, the feedback unpack). With --solver, the 10 ticks solve
 with the condensed PDIP (8 warm iterations) or ADMM (30) instead, as
 chip_smoke.py's timed condensed loops do, and the spans are MPC prepare,
 the condensed build, the solver, inside it the K4 and K5 wrappers, MPC
-finish, the substep chain and the feedback unpack. Prints the tick's
+finish, the substep chain and the feedback unpack. With --config4, the
+batch of chip_smoke.py's BASELINE config-4 phase (A1, B=64, standing_trot,
+H=30, iters=12 warm, on the platform or the stairs) walks in for 5
+standing and 100 walking ticks, and the 10 profiled ticks' spans are the
+opening feedback, MPC prepare, the K1 solve's wrapper, MPC finish and the
+per-substep loop (its low level, sim step and feedback nested in it).
+Prints the tick's
 host-clock time, each span's host time a tick, the device time a tick of
 each kernel (K1, K2 or K3; with --solver K4, K5 and K2 by name too; the
 rest summed), and the device's idle share of the window. Needs a CUDA
@@ -29,6 +36,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import chip_smoke  # noqa: E402
 from chip_smoke import B, SOLVER_ITERS  # noqa: E402
 from legged_mpc_control_tpu_torch.config import go1_params  # noqa: E402
 from legged_mpc_control_tpu_torch.control import step  # noqa: E402
@@ -70,6 +78,16 @@ CONDENSED_KERNELS = (("K4 chol_factor", "chol_factor"),
                      ("K5 chol_solve", "chol_solve"),
                      ("K2 substep_chain", "substep_chain"))
 TICKS = 10
+# the config-4 tick's layers (--config4): the per-substep loop in place of
+# the chain, with its parts nested inside it
+CONFIG4_LAYERS = ((step, "feedback_update", "feedback (all passes)"),
+                  (convex_mpc, "mpc_prepare", "MPC prepare"),
+                  (riccati, "solve_qp_riccati", "K1 solve (wrapper)"),
+                  (convex_mpc, "mpc_finish", "MPC finish"),
+                  (step, "_substep_loop", "per-substep loop"),
+                  (step, "lowlevel_update", "  low level (in loop)"),
+                  (step.srb_sim, "sim_step", "  sim step (in loop)"))
+CONFIG4_KERNELS = (("K1 riccati_ipm", "riccati_ipm"),)
 
 
 @contextlib.contextmanager
@@ -97,10 +115,14 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kf-type", type=int, default=0)
     ap.add_argument("--solver", choices=sorted(SOLVER_LAYERS))
+    ap.add_argument("--config4", choices=("platform", "stairs"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_tick_profile.py: no CUDA device available")
     dev = torch.device("cuda", 0)
+    if args.config4:
+        config4(dev, args.config4)
+        return
     f32 = torch.float32
     params = go1_params(f32, dev)
     pattern = gait.trot_pattern(f32, dev)
@@ -128,6 +150,24 @@ def main():
             TICKS, f"{args.solver} {iters} warm, kf_type {args.kf_type}, "
             f"B={B}, {TICKS} ticks", "tick", scenarios=B,
             groups=CONDENSED_KERNELS)
+
+
+def config4(dev, name):
+    """The config-4 tick under the profiler, from a walked-in batch."""
+    terrain = chip_smoke.c4_terrains(dev)[name]
+    loop, params, pattern = chip_smoke.c4_setup(dev, terrain)
+    loop, warm = chip_smoke.c4_ticks(loop, None, params, pattern, terrain,
+                                     chip_smoke.C4_STAND, walk=False)
+    loop = chip_smoke.set_mode(loop, 1)
+    loop, warm = chip_smoke.c4_ticks(loop, warm, params, pattern, terrain,
+                                     100)
+    profile(lambda: chip_smoke.c4_ticks(loop, warm, params, pattern,
+                                        terrain, TICKS),
+            CONFIG4_LAYERS, TICKS,
+            f"config 4 on the {name}, B={chip_smoke.C4_B}, "
+            f"H={chip_smoke.C4_H}, iters={chip_smoke.C4_ITERS} warm, "
+            f"{TICKS} ticks", "tick", scenarios=chip_smoke.C4_B,
+            groups=CONFIG4_KERNELS)
 
 
 def profile(run, layers, n, what, unit, scenarios=None, groups=()):

@@ -10,9 +10,9 @@ every horizon (`-DK1_F64_MIN_H=0`) and in float32 at every horizon
 the port, e.g. the parent unpacked with `git archive` under `checkouts/`).
 Each build is launched through its own tree's wrapper on chip_smoke.py's
 synthetic Go1 trot batch, B=4096, at H=10 iters=15 cold, at the loop's
-call (H=10, iters=4, warm from the shifted plain solution) and at H=30
-iters=15 cold, timed by CUDA events in turns: TREE, this, this, TREE, then
-the two variants. Prints each build's ptxas lines and, for each case, the
+call (H=10, iters=4, warm from the shifted plain solution), at H=13 and
+at H=30 iters=15 cold, timed by CUDA events in turns: TREE, this, this,
+TREE, then the two variants. Prints each build's ptxas lines and, for each case, the
 times and each build's largest distance to the float64 solve.
 """
 
@@ -61,7 +61,7 @@ def main():
     print(f"K1 of {ROOT}" + (f" against {tree}" if tree else "")
           + f", B={B} ({k1_spans.card_name()}):")
     for H, iters, start in ((10, 15, "cold"), (10, 4, "warm"),
-                            (30, 15, "cold")):
+                            (13, 15, "cold"), (30, 15, "cold")):
         params, x0, contact, lin = chip_smoke.qp_problem(B, H, dev)
         x_ref, A_seq, Bm = lin(x0)
         args = (x0, x_ref, A_seq, Bm, contact, params.q_weights,
