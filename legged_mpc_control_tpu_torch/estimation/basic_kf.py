@@ -35,16 +35,25 @@ def sequential_update(xbar, Pbar, H, err0, rdiag):
     applies a rank-1 correction with innovation err0_i - H_i (x - xbar),
     all linearized at xbar.
 
-    xbar (B, n), Pbar (B, n, n), H (m, n), err0 (B, m) = y - h(xbar),
+    xbar (B, n), Pbar (B, n, n), H (m, n) shared or (B, m, n) per
+    scenario (the EKF's linearization), err0 (B, m) = y - h(xbar),
     rdiag (B, m). Returns (x_new (B, n), P_new (B, n, n))."""
     dx = torch.zeros_like(xbar)
     P = Pbar
-    for i in range(H.shape[0]):
-        h = H[i]
-        Ph = P @ h                                          # (B, n)
-        s = Ph @ h + rdiag[:, i]
+    shared = H.dim() == 2
+    for i in range(H.shape[-2]):
+        if shared:
+            h = H[i]
+            Ph = P @ h                                      # (B, n)
+            s = Ph @ h + rdiag[:, i]
+            dxh = dx @ h
+        else:
+            h = H[:, i]
+            Ph = (P @ h[..., None])[..., 0]
+            s = (Ph * h).sum(-1) + rdiag[:, i]
+            dxh = (dx * h).sum(-1)
         K = Ph / s[:, None]
-        dx = dx + K * (err0[:, i] - dx @ h)[:, None]
+        dx = dx + K * (err0[:, i] - dxh)[:, None]
         P = P - K[:, :, None] * Ph[:, None, :]
     return xbar + dx, P
 

@@ -106,7 +106,8 @@ def _no_wall(wall):
     if wall is not None:
         raise NotImplementedError(
             "the wall (lean) branch of the contact-implicit MPC is not "
-            "ported yet: it comes with the articulated simulator (slice G)")
+            "ported yet: it comes with the rest of the contact-implicit "
+            "MPC (ROADMAP queue 1, item 5)")
 
 
 def _height(terrain, xy):

@@ -74,6 +74,23 @@ def angvel_to_rpy_rate(yaw):
     return _mat([[c, s, zero], [-s, c, zero], [zero, zero, one]])
 
 
+def euler_zyx_rates_from_omega_world(yaw, pitch, omega_world):
+    """Exact ZYX euler-angle rates [dyaw, dpitch, droll] from the world
+    angular velocity (reference: wbc.cpp:53-55): solves
+    omega_world = T(yaw, pitch) rates with
+        T = [[0, -sin(yaw), cos(yaw) cos(pitch)],
+             [0,  cos(yaw), sin(yaw) cos(pitch)],
+             [1,  0,        -sin(pitch)        ]].
+    Singular at pitch = +-pi/2, like the reference's own mapping."""
+    from legged_mpc_control_tpu_torch.ops import la3
+
+    sy, cy = torch.sin(yaw), torch.cos(yaw)
+    sp, cp = torch.sin(pitch), torch.cos(pitch)
+    z, o = torch.zeros_like(sy), torch.ones_like(sy)
+    T = _mat([[z, -sy, cy * cp], [z, cy, sy * cp], [o, z, -sp]])
+    return la3.solve3(T, omega_world)
+
+
 def quat_mul(q1, q2):
     """Hamilton product of quaternions [w,x,y,z]."""
     w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]

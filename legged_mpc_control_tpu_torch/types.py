@@ -89,7 +89,7 @@ class KfState(Struct):
 
 @dataclass
 class EkfState(Struct):
-    """EKF state (estimation/ekf.py in the JAX package); carried only."""
+    """EKF state (`estimation/ekf.py`), stepped under kf_type 2."""
     x: torch.Tensor                   # (B,25)
     P: torch.Tensor                   # (B,25,25)
     initialized: torch.Tensor         # (B,) bool
@@ -173,6 +173,20 @@ def loop_state_from_numpy(tree, device=None):
     from legged_mpc_control_tpu_torch.control.step import LoopState
 
     return from_numpy(LoopState, tree, device)
+
+
+def wb_loop_state_from_numpy(tree, device=None):
+    """`control.step.LoopState` with a `sim.wb_sim.WbSimState` (the
+    articulated twin's loop, e.g. `runner.init_wb_loop_batch`) from a tree
+    of arrays keyed by field name, as `loop_state_from_numpy`."""
+    from legged_mpc_control_tpu_torch.control.step import LoopState
+    from legged_mpc_control_tpu_torch.sim.wb_sim import WbSimState
+
+    def field(name):
+        return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+    return LoopState(
+        controller=from_numpy(ControllerState, field("controller"), device),
+        sim=from_numpy(WbSimState, field("sim"), device))
 
 
 def loop_state_to_numpy(state) -> dict:

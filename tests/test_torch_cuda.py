@@ -210,7 +210,7 @@ def _spd(batch, n, dev, seed):
 
 
 @pytest.mark.parametrize("batch", [1, 5, B])
-@pytest.mark.parametrize("n", [7, 24, 33, 120, 128, 129, 360])
+@pytest.mark.parametrize("n", [7, 18, 24, 33, 120, 128, 129, 360])
 def test_chol_kernels_match_plain(dev, n, batch):
     """K4/K5 against the plain versions by residuals, on each side of K4's
     dispatch (a warp a matrix for n <= 32, a register-tiled block for
@@ -332,6 +332,87 @@ def test_single_robot_tick_on_the_card(dev):
     assert bool(torch.isfinite(loop.sim.pos).all())
     assert bool(torch.isfinite(loop.controller.ctrl.optimized_input).all())
     assert 0.2 < float(loop.sim.pos[0, 2]) < 0.4
+
+
+# --- the articulated twin, kf_type 2 and the WBC -------------------------
+
+def _wb_batch(dev, batch, seed=0):
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.models import whole_body as wb
+
+    params = a1_params(F32, dev).replace(
+        kp_foot=torch.full((3,), 40.0, device=dev),
+        kd_foot=torch.full((3,), 1.2, device=dev))
+    model = wb.a1_wb_model(F32, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    loop = runner.init_wb_loop_batch(params, model, batch, gen, dtype=F32,
+                                     device=dev)
+    return loop, params, model
+
+
+def test_chol_kernels_on_the_twins_mass_matrices(dev):
+    """K4 + K5 at n=18, B=256 on the twin's own mass matrices (CRBA plus
+    armature, at seeded joint angles about the standing pose) against
+    their plain versions, elementwise."""
+    from legged_mpc_control_tpu_torch.models import whole_body_b as wbb
+    from legged_mpc_control_tpu_torch.sim import wb_sim
+
+    loop, _, model = _wb_batch(dev, 256)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = loop.sim.q + 0.2 * torch.randn(loop.sim.q.shape, generator=gen,
+                                       device=dev)
+    M = wbb.mass_matrix_b(q, model) + torch.diag(torch.cat([
+        torch.zeros(6, device=dev),
+        torch.full((12,), wb_sim.ARMATURE, device=dev)]))
+    b = torch.randn((256, 18), generator=gen, device=dev)
+    F = chol_kernel.cholesky_cuda(M)
+    x = chol_kernel.cho_solve_cuda(F, b)
+    Fp = chol_kernel.cholesky_plain(M)
+    xp = chol_kernel.cho_solve_plain(Fp, b)
+    assert float((F - Fp).abs().max() / Fp.abs().max()) < 1e-5
+    assert float((x - xp).abs().max() / xp.abs().max()) < 1e-4
+    assert float((x - chol_kernel.cho_solve_plain(F, b)).abs().max()
+                 / xp.abs().max()) < 1e-5
+
+
+def test_wb_batched_tick_launches_k1_k4_k5(dev):
+    """One batched tick of the twin: K1 once, K4 and K5 32 times each (8
+    substeps x n_inner 4), no substep chain."""
+    loop, params, model = _wb_batch(dev, 64)
+    pattern = gait.trot_pattern(F32, dev)
+    pb = step.broadcast_params(params, 64)
+    cuda_build.LAUNCHES.clear()
+    loop, warm = step.closed_loop_tick_wb_batched(loop, pb, pattern, model,
+                                                  horizon=10, iters=8)
+    assert cuda_build.LAUNCHES == {"riccati_ipm": 1, "chol_factor": 32,
+                                   "chol_solve": 32}
+    assert bool(torch.isfinite(loop.sim.q).all())
+    assert 0.2 < float(loop.sim.q[:, 2].mean()) < 0.35
+
+
+def test_kf2_rollout_launches_k1_only(trotting):
+    loop, _, pattern = trotting
+    cuda_build.LAUNCHES.clear()
+    final, _ = runner.make_batched_rollout(
+        pattern, n_ticks=3, pdip_iters=4, walk_velx=0.15, kf_type=2)(
+        loop, go1_params(F32, loop.sim.pos.device))
+    assert cuda_build.LAUNCHES == {"riccati_ipm": 3}
+    assert bool(torch.isfinite(final.controller.ekf.x).all())
+
+
+def test_wbc_twin_tick_on_the_card(dev):
+    """One robot on the twin with the WBC: the condensed PDIP's K4 and K5
+    at n=120 (15 and 30 a tick) and the twin's at n=18 (32 each a tick)."""
+    loop, params, model = _wb_batch(dev, 1)
+    pattern = gait.trot_pattern(F32, dev)
+    cuda_build.LAUNCHES.clear()
+    for _ in range(2):
+        loop = step.closed_loop_tick_wb(loop, params, pattern, model,
+                                        low_level_type=1)
+    assert cuda_build.LAUNCHES == {"chol_factor": 2 * (15 + 32),
+                                   "chol_solve": 2 * (30 + 32)}
+    assert bool(torch.isfinite(loop.sim.q).all())
+    assert bool(torch.isfinite(loop.controller.ctrl.joint_tau_tgt).all())
 
 
 # --- the contact-implicit slice: K6, K7 and the CI dispatch --------------

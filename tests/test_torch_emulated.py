@@ -341,7 +341,8 @@ def factor_lib(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("n,batch", [(7, 3), (24, 3), (120, 2), (360, 2)])
+@pytest.mark.parametrize("n,batch", [(7, 3), (18, 3), (24, 3), (120, 2),
+                                     (360, 2)])
 def test_k4_emulated_matches_plain(factor_lib, n, batch):
     """K4's three variants (a warp a matrix for n <= 32, a register-tiled
     block for n <= 128, the blocked panel factor above) on well-conditioned
@@ -388,10 +389,11 @@ def _check_solution(X, Xp):
                  / Xp[good].abs().max()) < 1e-5
 
 
-# n = 24 and 120 take the staged-triangle variant, 7 and 360 the streamed
-# rows, 400 the ring with its right-hand side in shared memory; batch 3
-# leaves the streamed variants' last block of two warps ragged
-@pytest.mark.parametrize("n", [7, 24, 120, 360, 400])
+# n = 24 and 120 take the staged-triangle variant, 7, 18 (the articulated
+# twin's mass matrices) and 360 the streamed rows, 400 the ring with its
+# right-hand side in shared memory; batch 3 leaves the streamed variants'
+# last block of two warps ragged
+@pytest.mark.parametrize("n", [7, 18, 24, 120, 360, 400])
 def test_k5_emulated_matches_plain(libs, n):
     _, chol = libs
     batch = 3

@@ -34,8 +34,9 @@ from legged_mpc_control_tpu_torch.ops import (
     riccati_kernel,
     substep_kernel,
 )
+from legged_mpc_control_tpu_torch.models import whole_body as wb
 from legged_mpc_control_tpu_torch.parallel import runner
-from legged_mpc_control_tpu_torch.sim import srb_sim, terrain
+from legged_mpc_control_tpu_torch.sim import srb_sim, terrain, wb_sim
 from legged_mpc_control_tpu_torch.tree import to_numpy, tree_map
 from legged_mpc_control_tpu_torch.types import (
     init_ctrl,
@@ -71,7 +72,10 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout) >= 25
-    for name in ("mpc.ci_mpc", "mpc.lci_mpc", "ops.ci_kernel", "sim.terrain"):
+    for name in ("mpc.ci_mpc", "mpc.lci_mpc", "ops.ci_kernel", "sim.terrain",
+                 "estimation.ekf", "models.whole_body", "models.whole_body_b",
+                 "sim.wb_sim", "control.hoqp", "control.wbc",
+                 "models.ik_dls"):
         assert f"{pkg.__name__}.{name}" in MODULES, name
 
 
@@ -165,17 +169,40 @@ def test_terrain_weights_and_lci_state_round_trip():
         s.replace(policy_warm=None))).policy_warm is None
 
 
+def _wb_loop():
+    p = a1_params(torch.float32, CPU)
+    return runner.init_wb_loop_batch(p, wb.a1_wb_model(device=CPU), 2,
+                                     torch.Generator(), device=CPU), p
+
+
 def test_kf_type_2_raises(small_loop):
-    """The EKF (kf_type 2) is not ported: every entry point refuses it."""
+    """The substep chain (K2, K3) has no EKF: it refuses kf_type 2, which
+    takes the per-substep loop. kf_type 3 does not exist: every entry point
+    refuses it."""
     loop, params, _ = small_loop
     pattern = gait.trot_pattern(torch.float32, CPU)
-    with pytest.raises(NotImplementedError):
-        step.closed_loop_tick_batched(loop, params, pattern, kf_type=2)
-    with pytest.raises(NotImplementedError):
-        runner.make_batched_rollout(pattern, kf_type=2)
-    with pytest.raises(NotImplementedError):
-        substep_kernel.substep_chain_cuda(*([None] * 21), substeps=8,
-                                          dt=0.00125, kf_type=2)
+    wb_loop, p = _wb_loop()
+    model = wb.a1_wb_model(device=CPU)
+    calls = [
+        lambda: step.closed_loop_tick_batched(loop, params, pattern,
+                                              kf_type=3),
+        lambda: runner.make_batched_rollout(pattern, kf_type=3),
+        lambda: step.feedback_update(loop.controller, {}, params, 0.00125,
+                                     kf_type=3),
+        lambda: step.closed_loop_tick_wb(wb_loop, p, pattern, model,
+                                         kf_type=3),
+        lambda: step.closed_loop_tick_wb_batched(
+            wb_loop, step.broadcast_params(p, 2), pattern, model,
+            kf_type=3),
+        lambda: runner.make_batched_rollout_wb(pattern, model, kf_type=3),
+        lambda: substep_kernel.substep_chain_cuda(
+            *([None] * 21), substeps=8, dt=0.00125, kf_type=2)]
+    for call in calls:
+        with pytest.raises(NotImplementedError):
+            call()
+    with pytest.raises(ValueError, match="kf_type 0 and 1"):
+        step.unpack_fused_feedback(loop.controller, loop.sim, {}, params,
+                                   kf_type=2)
     with pytest.raises(ValueError):
         substep_kernel.substep_chain_cuda(*([None] * 21), substeps=8,
                                           dt=0.00125, kf_type=1)
@@ -198,14 +225,32 @@ def test_randomize_params_draws_from_the_generator():
 
 
 def test_low_level_type_1_raises(small_loop):
-    """The WBC low level (low_level_type 1) is not ported."""
+    """low_level_type 2 does not exist (0 is J^T tau control, 1 the WBC):
+    every entry point refuses it. The contact-implicit MPC's wall branch is
+    not ported yet: the CI solve refuses a wall."""
     loop, params, _ = small_loop
     pattern = gait.trot_pattern(torch.float32, CPU)
-    with pytest.raises(NotImplementedError):
-        step.closed_loop_tick_batched(loop, params, pattern,
-                                      low_level_type=1)
-    with pytest.raises(NotImplementedError):
-        step.lowlevel_update(loop.controller, params, low_level_type=1)
+    wb_loop, p = _wb_loop()
+    model = wb.a1_wb_model(device=CPU)
+    calls = [
+        lambda: step.closed_loop_tick_batched(loop, params, pattern,
+                                              low_level_type=2),
+        lambda: step.lowlevel_update(loop.controller, params,
+                                     low_level_type=2),
+        lambda: runner.make_batched_rollout(pattern, low_level_type=2),
+        lambda: step.closed_loop_tick_wb(wb_loop, p, pattern, model,
+                                         low_level_type=2),
+        lambda: step.closed_loop_tick_wb_batched(
+            wb_loop, step.broadcast_params(p, 2), pattern, model,
+            low_level_type=2),
+        lambda: runner.make_batched_rollout_wb(pattern, model,
+                                               low_level_type=2)]
+    for call in calls:
+        with pytest.raises(NotImplementedError):
+            call()
+    wall = terrain.wall_at_x(0.4, device=CPU)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ci_mpc._no_wall(wall)
 
 
 def test_unknown_solver_raises(small_loop):
@@ -244,6 +289,13 @@ ENTRY_POINTS = {
             go1_params(device=CPU)).warm_init(2),
     "ci_walk_policy.warm_init": lambda: ci_mpc.make_ci_walk_policy(
         go1_params(device=CPU)).warm_init(),
+    "a1_wb_model": lambda: wb.a1_wb_model(),
+    "go1_wb_model": lambda: wb.go1_wb_model(),
+    "wb_sim_init": lambda: wb_sim.wb_sim_init(
+        wb.a1_wb_model(device=CPU), a1_params(device=CPU), [0.28]),
+    "init_wb_loop_batch": lambda: runner.init_wb_loop_batch(
+        a1_params(device=CPU), wb.a1_wb_model(device=CPU), 2,
+        torch.Generator()),
 }
 
 

@@ -115,9 +115,9 @@ def test_single_tick_rejects_unported():
                                               _jax_single("kf0")[0]))
     pattern = tgait.trot_pattern(torch.float64, CPU)
     with pytest.raises(NotImplementedError):
-        tstep.closed_loop_tick(loop, TP, pattern, kf_type=2)
+        tstep.closed_loop_tick(loop, TP, pattern, kf_type=3)
     with pytest.raises(NotImplementedError):
-        tstep.closed_loop_tick(loop, TP, pattern, low_level_type=1)
+        tstep.closed_loop_tick(loop, TP, pattern, low_level_type=2)
 
 
 # --- the unbatched condensed PDIP ---------------------------------------

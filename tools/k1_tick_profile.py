@@ -2,6 +2,7 @@
 
     python3 tools/k1_tick_profile.py [--kf-type 0|1] [--solver pdip|admm]
     python3 tools/k1_tick_profile.py --config4 platform|stairs
+    python3 tools/k1_tick_profile.py --wb [--wbc]
 
 Walks chip_smoke.py's batch (B=4096) in as its timed main path does (30
 ticks, the last 10 trotting at 0.15 m/s; H=10, Riccati with iters=4 warm),
@@ -17,7 +18,15 @@ H=30, iters=12 warm, on the platform or the stairs) walks in for 5
 standing and 100 walking ticks, and the 10 profiled ticks' spans are the
 opening feedback, MPC prepare, the K1 solve's wrapper, MPC finish and the
 per-substep loop (its low level, sim step and feedback nested in it).
-Prints the tick's
+With --wb, chip_smoke.py's twin batch (A1, B=256, trot, H=10, Riccati
+iters=8 warm) walks in as its timed run does (30 standing within 40
+ticks), and the 10 profiled walking ticks' spans are the feedback passes,
+MPC prepare, the K1 wrapper, MPC finish and the per-substep loop with its
+low level, the twin's sim step, its dynamics (`dyn_terms_b`) and the K4
+and K5 wrappers nested in it. With --wbc, the WBC stand of one robot on
+the twin (chip_smoke.py's `wbc_ticks`: the condensed PDIP on K4/K5 at
+n=120, the WBC in every substep) after 5 ticks, with the PDIP solve, the
+WBC, its HOQP and null-space SVDs as spans too. Prints the tick's
 host-clock time, each span's host time a tick, the device time a tick of
 each kernel (K1, K2 or K3; with --solver K4, K5 and K2 by name too; the
 rest summed), and the device's idle share of the window. Needs a CUDA
@@ -90,6 +99,37 @@ CONFIG4_LAYERS = ((step, "feedback_update", "feedback (all passes)"),
 CONFIG4_KERNELS = (("K1 riccati_ipm", "riccati_ipm"),)
 
 
+def wb_layers(wbc_spans):
+    """The twin tick's layers (--wb; --wbc adds the single-robot PDIP and
+    the WBC's)."""
+    from legged_mpc_control_tpu_torch.control import hoqp, wbc
+    from legged_mpc_control_tpu_torch.models import whole_body_b
+    from legged_mpc_control_tpu_torch.sim import wb_sim
+
+    layers = [(step, "feedback_update", "feedback (all passes)"),
+              (convex_mpc, "mpc_prepare", "MPC prepare")]
+    layers += ([(pdip, "solve_qp_pdip", "PDIP solve (K4/K5, n=120)")]
+               if wbc_spans else
+               [(riccati, "solve_qp_riccati", "K1 solve (wrapper)")])
+    layers += [(convex_mpc, "mpc_finish", "MPC finish"),
+               (step, "_substep_loop", "per-substep loop"),
+               (step, "lowlevel_update", "  low level (in loop)")]
+    if wbc_spans:
+        layers += [(wbc, "wbc_from_controller", "    WBC (in low level)"),
+                   (hoqp, "hoqp_solve", "      HOQP (in WBC)"),
+                   (hoqp, "soft_nullspace", "      null-space SVDs")]
+    return layers + [
+        (wb_sim, "wb_sim_step_batched", "  twin sim step (in loop)"),
+        (whole_body_b, "dyn_terms_b", "    dynamics (in sim step)"),
+        (chol_kernel, "cholesky_cuda", "    K4 wrapper"),
+        (chol_kernel, "cho_solve_cuda", "    K5 wrapper")]
+
+
+WB_KERNELS = (("K1 riccati_ipm", "riccati_ipm"),
+              ("K4 chol_factor", "chol_factor"),
+              ("K5 chol_solve", "chol_solve"))
+
+
 @contextlib.contextmanager
 def spans(layers):
     """Each of `layers` ((module, attribute, span name)) wrapped in a
@@ -116,12 +156,17 @@ def main():
     ap.add_argument("--kf-type", type=int, default=0)
     ap.add_argument("--solver", choices=sorted(SOLVER_LAYERS))
     ap.add_argument("--config4", choices=("platform", "stairs"))
+    ap.add_argument("--wb", action="store_true")
+    ap.add_argument("--wbc", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_tick_profile.py: no CUDA device available")
     dev = torch.device("cuda", 0)
     if args.config4:
         config4(dev, args.config4)
+        return
+    if args.wb or args.wbc:
+        twin(dev, args.wbc)
         return
     f32 = torch.float32
     params = go1_params(f32, dev)
@@ -168,6 +213,46 @@ def config4(dev, name):
             f"H={chip_smoke.C4_H}, iters={chip_smoke.C4_ITERS} warm, "
             f"{TICKS} ticks", "tick", scenarios=chip_smoke.C4_B,
             groups=CONFIG4_KERNELS)
+
+
+def twin(dev, wbc_stand):
+    """The articulated twin's tick under the profiler: the batched loop
+    from a walked-in batch, or (wbc_stand) one robot's WBC stand."""
+    if wbc_stand:
+        from legged_mpc_control_tpu_torch.sim import wb_sim
+
+        _, params, model, pattern = chip_smoke.wb_setup(dev, 1, 0)
+        f32 = torch.float32
+        state = {"loop": step.LoopState(
+            controller=step.controller_init(params, 1, f32, dev,
+                                            body_height=0.28),
+            sim=wb_sim.wb_sim_init(model, params, [0.28], f32, dev))}
+
+        def ticks(n):
+            for _ in range(n):
+                state["loop"] = step.closed_loop_tick_wb(
+                    state["loop"], params, pattern, model, horizon=10,
+                    low_level_type=1)
+        ticks(5)
+        profile(lambda: ticks(TICKS), wb_layers(True), TICKS,
+                f"the WBC stand on the twin, one A1 robot, {TICKS} ticks",
+                "tick", scenarios=1, groups=WB_KERNELS)
+        return
+    b = chip_smoke.WB_B
+    loop, params, model, pattern = chip_smoke.wb_setup(dev, b, 0)
+
+    def make(n, stand):
+        return runner.make_batched_rollout_wb(
+            pattern, model, horizon=chip_smoke.WB_H, n_ticks=n,
+            pdip_iters=chip_smoke.WB_ITERS, walk_velx=chip_smoke.WB_VELX,
+            stand_ticks=stand)
+    walked = make(chip_smoke.WB_WALKIN, chip_smoke.WB_WALKIN_STAND)(
+        loop, params)[0]
+    roll = make(TICKS, 0)
+    profile(lambda: roll(walked, params), wb_layers(False), TICKS,
+            f"the twin's batched loop, A1, B={b}, H={chip_smoke.WB_H}, "
+            f"riccati {chip_smoke.WB_ITERS} warm, {TICKS} walking ticks",
+            "tick", scenarios=b, groups=WB_KERNELS)
 
 
 def profile(run, layers, n, what, unit, scenarios=None, groups=()):
