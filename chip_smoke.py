@@ -32,8 +32,19 @@ loop at B=64 with the estimator limits of bench.py:221-222; the WBC stand
 of one robot, `closed_loop_tick_wb` with low_level_type 1), then the
 twin's loop timed at B=256, K4 + K5 against their plain versions on its
 walked batch's mass matrices, the kf_type-2 loop timed at B=4096 and the
-WBC stand's tick timed. Exits non-zero on any failure and
-when no CUDA device is present. Diagnostics go to the earlier
+WBC stand's tick timed. Then the rest of the contact-implicit MPC, one
+robot each, its gate runs in four more processes beside the seven: the
+wall lean of tests/test_ci_wall_lean.py on the twin for Go1 and A1
+(`step.closed_loop_tick_lci_wb(wall=...)`, `make_ci_lean_policy`, 250
+ticks: K4 + K6 240 times a tick at n=24, K4 + K5 32 times at n=18), the
+`--mpc lci` walk of tests/test_lci.py (`step.closed_loop_tick_lci`,
+`make_walk_policy`: K4 12 and K5 24 times a tick at n=96) and the flat CI
+walk of tests/test_ci_mpc.py (`make_ci_walk_policy`, K7 at B=1 once a
+tick); then the two walks' ticks timed alone, K4 + K6 against their plain
+versions on the lean's own gain systems and on a batched wall solve (and
+that whole solve, "lanes" against "plain"), and K4 + K5 at n=96, B=1 on
+the LCI walk's own QPs against plain and float64. Exits non-zero on any
+failure and when no CUDA device is present. Diagnostics go to the earlier
 lines; the second-to-last line is a JSON object of the kernels, the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -1405,7 +1416,7 @@ def phase_k7(dev, card, st):
           f"B=1, 32 sweeps {ms1:.3f} ms", flush=True)
     done(t0)
     return dict(err=max(err, err1), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, ms1=ms1)
 
 
 def phase_ci_latency(dev, card):
@@ -1714,17 +1725,21 @@ def single_gate(name):
 
 
 def submit_gates(pool):
-    """The gate runs of the last two phases, submitted together: config 4's
-    four and the twin's, the kf_type-2 loop's and the WBC stand's three, a
-    process each (`pool` has seven workers), so that the WBC stand's long
-    one-robot run overlaps config 4's; every timed run of the two phases
-    waits until all seven have ended. Returns name -> future."""
-    gates = {("c4", n): pool.submit(c4_gate, n)
-             for n in ("platform", "stairs")}
+    """The gate runs of the last three phases, submitted together, a
+    process each (`pool` has eleven workers): the two wall leans first
+    (the longest), config 4's four, the twin's, the kf_type-2 loop's and
+    the WBC stand's three, the LCI walk's and the single-robot CI walk's,
+    so that the long one-robot runs overlap config 4's; every timed run of
+    the three phases waits until all eleven have ended. Returns name ->
+    future."""
+    gates = {("lean", rb): pool.submit(lean_gate, rb) for rb in LEAN_ROBOTS}
+    gates.update({("c4", n): pool.submit(c4_gate, n)
+                  for n in ("platform", "stairs")})
     gates.update({("single", n): pool.submit(single_gate, n)
                   for n in SINGLE_GAITS})
     gates.update({(n, None): pool.submit(fn) for n, fn in (
-        ("wb", wb_gate), ("kf2", kf2_gate), ("wbc", wbc_gate))})
+        ("wb", wb_gate), ("kf2", kf2_gate), ("wbc", wbc_gate),
+        ("lci", lci_gate), ("ci1", ci1_gate))})
     return gates
 
 
@@ -1748,7 +1763,7 @@ def phase_config4(dev, card, pool):
                f"stairs, and the single-robot tick (A1, H=10, PDIP 15, "
                f"{SINGLE_STAND} standing + {SINGLE_WALK} walking ticks) "
                f"with {' and '.join(SINGLE_GAITS)}: four processes (beside "
-               "the next phase's three)")
+               "the next two phases' seven)")
     c4 = {n: gates["c4", n].result() for n in ("platform", "stairs")}
     single = {n: gates["single", n].result() for n in SINGLE_GAITS}
     for name, r in c4.items():
@@ -1814,6 +1829,75 @@ def config4_timed(dev, card):
     return rates
 
 
+def check_k4_k6(A, R, robust_share, label):
+    """K4 + K6 on gain systems A (N, n, n), R (N, n, m) as the CI sweeps
+    hand them over, against the plain versions, where the float64 pivots
+    are robust (at least `robust_share` of the N must be): K6 on K4's
+    factor elementwise and the path against the plain path
+    (`cholesky_plain`, then `cho_solve_multi_plain`), relative to each
+    system's largest entry, within K6_REL_TOL; K4's factor and the path's
+    solve by their backward errors, within BACKWARD_TOL and 4x plain's.
+    Returns (K4's factor, K6's largest elementwise error)."""
+    from legged_mpc_control_tpu_torch.ops import chol_kernel
+
+    N = A.shape[0]
+    F = chol_kernel.cholesky_cuda(A)                # K4, as the path runs it
+    Fp = chol_kernel.cholesky_plain(A)
+    X = chol_kernel.cho_solve_multi_cuda(F, R)      # the path: K4 + K6
+    X6p = chol_kernel.cho_solve_multi_plain(F, R)   # K6's plain version
+    Xp = chol_kernel.cho_solve_multi_plain(Fp, R)   # the plain path
+    torch.cuda.synchronize()
+    L64, info = torch.linalg.cholesky_ex(A.double())
+    pivot = torch.where(
+        info == 0, (L64.diagonal(dim1=-2, dim2=-1) ** 2
+                    / A.double().diagonal(dim1=-2, dim2=-1)).amin(-1),
+        torch.zeros_like(L64[:, 0, 0]))
+    robust = pivot >= ROBUST_PIVOT
+    n_rob = int(robust.sum())
+    check(n_rob >= robust_share * N,
+          f"K6 {label}: only {n_rob} of {N} robust matrices")
+    check(bool(torch.isfinite(F[robust]).all()),
+          f"K4 {label}: a robust matrix not factored")
+    check(bool(torch.isfinite(X[robust]).all()),
+          f"K4 + K6 {label}: non-finite")
+    Ad = A.double()
+
+    def factor_backward(F):
+        L = F.double().tril()
+        r = (L @ L.mT - Ad).abs().amax((-1, -2))
+        return float((r / Ad.abs().amax((-1, -2)))[robust].max())
+
+    def solve_backward(x):
+        r = (Ad @ x.double() - R.double()).abs().amax((-1, -2))
+        scale = (Ad.abs().sum(-1).amax(-1)
+                 * x.double().abs().amax((-1, -2)))
+        return float((r / scale)[robust].max())
+
+    def rel(x, y):
+        return float(((x - y).abs().amax((-1, -2))
+                      / y.abs().amax((-1, -2)))[robust].max())
+    rf, rfp = factor_backward(F), factor_backward(Fp)
+    rk, rp = solve_backward(X), solve_backward(Xp)
+    rel6, rel_path, rel4 = rel(X, X6p), rel(X, Xp), rel(F.tril(), Fp.tril())
+    err = float((X - X6p)[robust].abs().max())
+    err4 = float((F - Fp).tril()[robust].abs().max())
+    print(f"   {label}: {n_rob} of {N} matrices with robust pivots. K4: "
+          f"backward error {rf:.3e} (plain {rfp:.3e}), max |F - F_plain| "
+          f"{err4:.3e}, relative {rel4:.3e}. K6 on K4's factor: max "
+          f"|X - X_plain| {err:.3e}, relative {rel6:.3e}. K4 + K6 against "
+          f"the plain path: backward error {rk:.3e} (plain {rp:.3e}), "
+          f"relative {rel_path:.3e} (tol {K6_REL_TOL}; backward tol "
+          f"{BACKWARD_TOL})", flush=True)
+    check(rf <= BACKWARD_TOL and rf <= 4 * rfp + 1e-6,
+          f"K4 {label}: backward error {rf} vs {rfp}")
+    check(rk <= BACKWARD_TOL and rk <= 4 * rp + 1e-6,
+          f"K4 + K6 {label}: backward error {rk} vs {rp}")
+    check(rel6 <= K6_REL_TOL, f"K6 {label}: differs by {rel6}")
+    check(rel_path <= K6_REL_TOL,
+          f"K4 + K6 {label}: differ from the plain path by {rel_path}")
+    return F, err
+
+
 def phase_k6(dev, card, st):
     """Kernels K4 and K6 on the gain solve of one backward stage of the
     walked-in box-step solve at B=256, Quu_r and [Qu | Qux_r] as the terrain
@@ -1843,58 +1927,7 @@ def phase_k6(dev, card, st):
         ci_roll(dict(st), 1, t0=0.7)
     A, R = seen["A"], seen["R"]
     n, m = R.shape[1], R.shape[2]
-    F = chol_kernel.cholesky_cuda(A)                # K4, as the path runs it
-    Fp = chol_kernel.cholesky_plain(A)
-    X = chol_kernel.cho_solve_multi_cuda(F, R)      # the path: K4 + K6
-    X6p = chol_kernel.cho_solve_multi_plain(F, R)   # K6's plain version
-    Xp = chol_kernel.cho_solve_multi_plain(Fp, R)   # the plain path
-    torch.cuda.synchronize()
-    L64, info = torch.linalg.cholesky_ex(A.double())
-    pivot = torch.where(
-        info == 0, (L64.diagonal(dim1=-2, dim2=-1) ** 2
-                    / A.double().diagonal(dim1=-2, dim2=-1)).amin(-1),
-        torch.zeros_like(L64[:, 0, 0]))
-    robust = pivot >= ROBUST_PIVOT
-    n_rob = int(robust.sum())
-    check(n_rob > 0.9 * CI_B, f"K6: only {n_rob} robust matrices")
-    check(bool(torch.isfinite(F[robust]).all()),
-          "K4 at n=24: a robust matrix not factored")
-    check(bool(torch.isfinite(X[robust]).all()), "K4 + K6: non-finite")
-    Ad = A.double()
-
-    def factor_backward(F):
-        L = F.double().tril()
-        r = (L @ L.mT - Ad).abs().amax((-1, -2))
-        return float((r / Ad.abs().amax((-1, -2)))[robust].max())
-
-    def solve_backward(x):
-        r = (Ad @ x.double() - R.double()).abs().amax((-1, -2))
-        scale = (Ad.abs().sum(-1).amax(-1)
-                 * x.double().abs().amax((-1, -2)))
-        return float((r / scale)[robust].max())
-
-    def rel(x, y):
-        return float(((x - y).abs().amax((-1, -2))
-                      / y.abs().amax((-1, -2)))[robust].max())
-    rf, rfp = factor_backward(F), factor_backward(Fp)
-    rk, rp = solve_backward(X), solve_backward(Xp)
-    rel6, rel_path, rel4 = rel(X, X6p), rel(X, Xp), rel(F.tril(), Fp.tril())
-    err = float((X - X6p)[robust].abs().max())
-    err4 = float((F - Fp).tril()[robust].abs().max())
-    print(f"   {n_rob} of {CI_B} matrices with robust pivots. K4: backward "
-          f"error {rf:.3e} (plain {rfp:.3e}), max |F - F_plain| {err4:.3e},"
-          f" relative {rel4:.3e}. K6 on K4's factor: max |X - X_plain| "
-          f"{err:.3e}, relative {rel6:.3e}. K4 + K6 against the plain path:"
-          f" backward error {rk:.3e} (plain {rp:.3e}), relative "
-          f"{rel_path:.3e} (tol {K6_REL_TOL}; backward tol {BACKWARD_TOL})",
-          flush=True)
-    check(rf <= BACKWARD_TOL and rf <= 4 * rfp + 1e-6,
-          f"K4 at n=24: backward error {rf} vs {rfp}")
-    check(rk <= BACKWARD_TOL and rk <= 4 * rp + 1e-6,
-          f"K4 + K6: backward error {rk} vs {rp}")
-    check(rel6 <= K6_REL_TOL, f"K6: differs by {rel6}")
-    check(rel_path <= K6_REL_TOL,
-          f"K4 + K6: differ from the plain path by {rel_path}")
+    F, err = check_k4_k6(A, R, 0.9, "box-step stage")
     Lp = F.tril()
     ms = cuda_ms(lambda: chol_kernel.cho_solve_multi_cuda(F, R), reps=20)
     plain_ms = cuda_ms(lambda: chol_kernel.cho_solve_multi_plain(F, R),
@@ -1908,8 +1941,8 @@ def phase_k6(dev, card, st):
     b4 = bound(CI_B * tri(n) * 2 * 4, CI_B * n ** 3 / 3)
     print(f"   time ({card}): K6 kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms, torch.cholesky_solve {lib_ms:.4f} ms; bound {b_ms:.3g} ms "
-          f"({b_by}); K4 at n={n}: kernel {ms4:.4f} ms (max |F - F_plain| "
-          f"{err4:.3e}), plain {plain4:.4f} ms, torch.linalg.cholesky_ex "
+          f"({b_by}); K4 at n={n}: kernel {ms4:.4f} ms, plain "
+          f"{plain4:.4f} ms, torch.linalg.cholesky_ex "
           f"{lib4:.4f} ms (x{lib4 / ms4:.2f} the kernel's time), bound "
           f"{b4[0]:.3g} ms ({b4[1]})", flush=True)
     done(t0)
@@ -2288,6 +2321,566 @@ def phase_wb_timed(dev, card):
     return k45, rate, rate2
 
 
+
+# ---- the rest of the contact-implicit MPC: the wall lean (Go1, A1), the
+# `--mpc lci` walk and the single-robot CI walk (A1), one robot each -------
+
+# tests/test_ci_wall_lean.py:41-127, uncut: mu 0.6, the wall at x = 0.35,
+# pitch -0.4, the front feet 1.5 mm short of the plane, mode 1 with the
+# 2-tap filter warmed, `make_ci_lean_policy(iters=24)` for 250 ticks
+LEAN_ROBOTS = ("go1", "a1")
+LEAN_TICKS, LEAN_ITERS, LEAN_SETTLE = 250, 24, 20
+LEAN_WALL_X, LEAN_PITCH = 0.35, -0.4
+# a lean tick: 24 sweeps x H=10 backward stages, each a K4 + K6 gain solve
+# at n=24; 8 substeps x 4 inner twin steps, each K4 + K5 at n=18
+LEAN_LAUNCHES = {"chol_factor": 240 + 32, "chol_solve_multi": 240,
+                 "chol_solve": 32}
+# the batched wall solve held lanes against plain: lean states perturbed
+# from a seed, 24 sweeps; the whole solve in K7_TOL's bracket
+LEAN_B = 64
+# tests/test_lci.py:92-125: A1, 20 stand ticks, then 60 walk ticks of
+# `make_walk_policy(velx=0.25)` (H=8, 12 PDIP iterations: K4 12 and K5 24
+# times a tick at n=96, B=1)
+LCI_STAND, LCI_WALK, LCI_VELX = 20, 60, 0.25
+LCI_LAUNCHES = {"chol_factor": 12, "chol_solve": 24}
+# tests/test_ci_mpc.py:142-179: A1, 20 stand ticks, then 300 walk ticks of
+# `make_ci_walk_policy(velx=0.10)` (32 sweeps, K7 at B=1 once a tick)
+CI1_STAND, CI1_WALK, CI1_VELX = 20, 300, 0.10
+# the LCI walk's and the CI walk's ticks timed alone: walking ticks after
+# a few standing ones
+LCI_TIMED_STAND, LCI_TIMED = 5, 20
+
+
+def lean_setup(dev, robot, iters=LEAN_ITERS):
+    """tests/test_ci_wall_lean.py:41-99's setup on the port (float32): the
+    params at mu 0.6, the twin's model and state at the lean pose, the
+    wall, the lean and stand policies, the loop in mode 1 and the LCI state
+    with its foot filter warmed."""
+    from legged_mpc_control_tpu_torch.config import a1_params, go1_params
+    from legged_mpc_control_tpu_torch.control import step
+    from legged_mpc_control_tpu_torch.models import kinematics as kin
+    from legged_mpc_control_tpu_torch.models import whole_body as wb
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc, lci_mpc
+    from legged_mpc_control_tpu_torch.sim import terrain as terrain_mod
+    from legged_mpc_control_tpu_torch.sim import wb_sim
+
+    f32 = torch.float32
+    base = (a1_params if robot == "a1" else go1_params)(f32, dev)
+    params = base.replace(mu=torch.tensor(0.6, device=dev))
+    model = wb.wb_model_for(robot, f32, dev)
+    wall = terrain_mod.wall_at_x(LEAN_WALL_X, f32, dev)
+    pos = torch.tensor([0.0, 0.0, 0.32], device=dev)
+    eul = torch.tensor([0.0, LEAN_PITCH, 0.0], device=dev)
+    tgt = torch.tensor([[LEAN_WALL_X, 0.13, 0.42], [LEAN_WALL_X, -0.13, 0.42],
+                        [-0.17, 0.13, 0.0], [-0.17, -0.13, 0.0]], device=dev)
+    feet = tgt.clone()
+    feet[0:2, 0] -= 0.0015
+    c, s_ = np.cos(np.float32(LEAN_PITCH)), np.sin(np.float32(LEAN_PITCH))
+    R = torch.tensor([[c, 0.0, s_], [0.0, 1.0, 0.0], [-s_, 0.0, c]],
+                     dtype=f32, device=dev)
+    qj = kin.ik_legs((feet - pos) @ R, torch.tensor(
+        [0.0, 0.8, -1.6], device=dev).expand(4, 3),
+        wb_sim.wb_rho_fix(model, f32))
+    q = torch.cat([pos, eul, qj.reshape(12)])[None]
+    fp = wb.foot_positions(q, model)
+    sim = wb_sim.WbSimState(q=q, v=torch.zeros_like(q),
+                            anchor=fp[..., :2].clone(), wall_anchor=fp,
+                            f_contact=torch.zeros_like(fp),
+                            last_acc=torch.zeros((1, 3), device=dev))
+    lean = ci_mpc.make_ci_lean_policy(params, wall, tgt, pos, eul,
+                                      iters=iters)
+    lci = lci_mpc.lci_init(f32, lean.warm_init(f32, dev), device=dev)
+    lci = lci.replace(prev_foot_pos=(feet - pos)[None],
+                      prev_foot_vel=torch.zeros((1, 4, 3), device=dev))
+    cs = step.controller_init(params, 1, f32, dev)
+    cs = cs.replace(ctrl=cs.ctrl.replace(movement_mode=torch.ones(
+        (1,), dtype=torch.int32, device=dev)))
+    return dict(params=params, model=model, wall=wall, lean=lean,
+                stand=lci_mpc.make_stand_policy(params, body_height=0.3),
+                loop=step.LoopState(controller=cs, sim=sim), lci=lci,
+                pose=(tgt, pos, eul))
+
+
+def lean_gate(robot, dev_type="cuda"):
+    """The lean of `robot` for LEAN_TICKS ticks through
+    `step.closed_loop_tick_lci_wb(wall=...)`, in a process of its own: per
+    tick z, pitch, roll and the front feet's wall-normal forces, each
+    tick's seconds, the launches, and the gain systems (Quu + Rr, [Qu | Qux
+    + Rx]) that the first tick's wall solve hands K4 + K6 (on the CPU)."""
+    from legged_mpc_control_tpu_torch.control import step
+    from legged_mpc_control_tpu_torch.ops import chol_kernel
+
+    dev = torch.device(dev_type, 0)
+    L = lean_setup(dev, robot)
+    loop, lci = L["loop"], L["lci"]
+    systems = []
+    factor, solve = chol_kernel.cholesky_cuda, chol_kernel.cho_solve_multi_cuda
+
+    def cap_factor(A):
+        if A.shape[-1] == 24:
+            systems.append([A.clone()])
+        return factor(A)
+
+    def cap_solve(F, R):
+        systems[-1].append(R.clone())
+        return solve(F, R)
+
+    def tick(loop, lci, k):
+        return step.closed_loop_tick_lci_wb(
+            loop, lci, L["params"], L["model"], L["stand"], L["lean"],
+            0.01 * k, wall=L["wall"])
+    hist, times = [], []
+    sync(dev)
+    with launch_counts() as launches:
+        for k in range(LEAN_TICKS):
+            t1 = time.perf_counter()
+            if k == 0:
+                with patched(chol_kernel, cholesky_cuda=cap_factor,
+                             cho_solve_multi_cuda=cap_solve):
+                    loop, lci = tick(loop, lci, k)
+            else:
+                loop, lci = tick(loop, lci, k)
+            sync(dev)
+            times.append(time.perf_counter() - t1)
+            q, fc = loop.sim.q[0], loop.sim.f_contact[0]
+            # the wall's normal is -x: the robot's press reads as negative
+            # contact force x on the front feet
+            hist.append(torch.stack([q[2], q[4], q[5], -fc[0, 0],
+                                     -fc[1, 0]]))
+    h = torch.stack(hist).double().cpu().numpy()
+    A = torch.cat([a for a, _ in systems]).cpu()
+    R = torch.cat([r for _, r in systems]).cpu()
+    return dict(h=h, times=times, launches=dict(launches), A=A, R=R,
+                finite=bool(torch.isfinite(loop.sim.q).all()))
+
+
+def lean_verdict(robot, r):
+    """Every assertion of tests/test_ci_wall_lean.py:76-127 on a lean
+    gate's record; prints the readings."""
+    h = r["h"]
+    z, pitch, roll, f0, f1 = h.T
+    st = h[LEAN_SETTLE:]
+    print(f"   lean {robot}: launches over {LEAN_TICKS} ticks "
+          f"{r['launches']}; z in [{z.min():.4f}, {z.max():.4f}] m, pitch "
+          f"in [{pitch.min():.4f}, {pitch.max():.4f}], max |roll| "
+          f"{np.abs(roll).max():.4f} rad; after tick {LEAN_SETTLE} the "
+          f"front feet's wall-normal force min {st[:, 3].min():.2f} / "
+          f"{st[:, 4].min():.2f} N, mean {st[:, 3].mean():.2f} / "
+          f"{st[:, 4].mean():.2f} N", flush=True)
+    want = {k: LEAN_TICKS * v for k, v in LEAN_LAUNCHES.items()}
+    check(r["launches"] == want, f"lean {robot}: launches "
+          f"{r['launches']}, want {want}")
+    check(r["finite"], f"lean {robot}: non-finite")
+    check(bool(np.all(z > 0.2)), f"lean {robot}: collapsed")
+    check(bool(np.all(pitch < -0.25)), f"lean {robot}: pitch {pitch.max()}")
+    check(bool(np.all(pitch > -0.55)), f"lean {robot}: pitch {pitch.min()}")
+    check(np.abs(roll).max() < 0.1, f"lean {robot}: roll")
+    for i, f in ((0, st[:, 3]), (1, st[:, 4])):
+        check(f.min() > 8.0, f"lean {robot}: front foot {i} wall force "
+              f"{f.min()} N")
+        check(f.mean() > 15.0, f"lean {robot}: front foot {i} mean wall "
+              f"force {f.mean()} N")
+    check(0.30 < z.min() and z.max() < 0.45,
+          f"lean {robot}: z in [{z.min()}, {z.max()}]")
+
+
+def lci_ticks(dev, walk_kind, n_stand, n_walk, timed=0, capture=False):
+    """One A1 robot through `step.closed_loop_tick_lci` (the SRB simulator,
+    the per-substep loop): `n_stand` stand ticks, then `n_walk` walk ticks
+    of `make_walk_policy(velx=0.25)` ("lci") or `make_ci_walk_policy(
+    velx=0.10)` ("ci"). Returns the stand's last z, the walk's x progress,
+    the final loop, per walk tick z and |roll|, |pitch|, the walk's
+    launches, the last `timed` ticks' seconds, and with `capture` each
+    walk tick's condensed QP (P, q, mu, fz_max, contact) as the walk
+    policy hands it to the PDIP (on the CPU)."""
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.control import step
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc, lci_mpc, pdip
+    from legged_mpc_control_tpu_torch.sim import srb_sim
+
+    f32 = torch.float32
+    params = a1_params(f32, dev)
+    loop = step.LoopState(
+        controller=step.controller_init(params, 1, f32, dev),
+        sim=srb_sim.sim_init(params, torch.full((1,), 0.3), f32, dev))
+    stand = lci_mpc.make_stand_policy(params, body_height=0.3)
+    if walk_kind == "lci":
+        walk = lci_mpc.make_walk_policy(params, velx=LCI_VELX,
+                                        body_height=0.3)
+        lci = lci_mpc.lci_init(f32, device=dev)
+    else:
+        walk = ci_mpc.make_ci_walk_policy(params, velx=CI1_VELX)
+        lci = lci_mpc.lci_init(f32, walk.warm_init(f32, dev), device=dev)
+    t = 0.0
+    for _ in range(n_stand):
+        loop, lci = step.closed_loop_tick_lci(loop, lci, params, stand, walk,
+                                              t)
+        t += 0.01
+    z_stand = loop.sim.pos[0, 2].clone()
+    loop = set_mode(loop, 1)
+    x0 = loop.sim.pos[0, 0].clone()
+    qps, rec, times = [], [], []
+    solve = pdip._solve
+
+    def cap(P, q, mu, fz_max, contact, **kw):
+        qps.append((P[0].cpu(), q[0].cpu(), mu.cpu(), fz_max.cpu(),
+                    contact[0].cpu()))
+        return solve(P, q, mu, fz_max, contact, **kw)
+    sync(dev)
+    with launch_counts() as launches, contextlib.ExitStack() as stack:
+        if capture:
+            stack.enter_context(patched(pdip, _solve=cap))
+        for k in range(n_walk):
+            t1 = time.perf_counter()
+            loop, lci = step.closed_loop_tick_lci(loop, lci, params, stand,
+                                                  walk, t)
+            t += 0.01
+            if k >= n_walk - timed:
+                sync(dev)
+                times.append(time.perf_counter() - t1)
+            rec.append(torch.cat([loop.sim.pos[0, 2:3],
+                                  loop.controller.fbk.root_euler[0, :2]]))
+    rec = torch.stack(rec).double().cpu().numpy()
+    return dict(z_stand=float(z_stand), dx=float(loop.sim.pos[0, 0] - x0),
+                loop=loop, z=rec[:, 0], rp=np.abs(rec[:, 1:]).max(-1),
+                launches=dict(launches), times=times, qps=qps,
+                params=params)
+
+
+def lci_gate(dev_type="cuda"):
+    """tests/test_lci.py:92-125's recipe, in a process of its own; returns
+    plain numbers and the walk's QPs."""
+    r = lci_ticks(torch.device(dev_type, 0), "lci", LCI_STAND, LCI_WALK,
+                  capture=True)
+    pos = r["loop"].sim.pos[0]
+    eul = r["loop"].controller.fbk.root_euler[0]
+    return dict(z_stand=r["z_stand"], dx=r["dx"], z=float(pos[2]),
+                roll=float(eul[0]), pitch=float(eul[1]),
+                finite=bool(torch.isfinite(pos).all()),
+                launches=r["launches"], qps=r["qps"])
+
+
+def ci1_gate(dev_type="cuda"):
+    """tests/test_ci_mpc.py:142-179's recipe, in a process of its own."""
+    r = lci_ticks(torch.device(dev_type, 0), "ci", CI1_STAND, CI1_WALK)
+    pos = r["loop"].sim.pos[0]
+    return dict(x=float(pos[0]), z=float(pos[2]), z_min=float(r["z"].min()),
+                worst_rp=float(r["rp"].max()), launches=r["launches"],
+                finite=bool(torch.isfinite(pos).all()))
+
+
+def phase_lci(dev, card, gates):
+    """The rest of the contact-implicit MPC on the card, one robot each:
+    the gate runs (`submit_gates`), side by side in processes of their
+    own, of the wall lean on the articulated twin for Go1 and A1
+    (tests/test_ci_wall_lean.py), the `--mpc lci` walk (tests/test_lci.py)
+    and the single-robot flat CI walk (tests/test_ci_mpc.py). The lean's
+    tick time is its gate's, beside the other processes (diagnostic,
+    host-bound); the two walks are timed alone, `phase_lci_timed`.
+    Returns the lean gates' first-tick gain systems, the LCI walk's QPs
+    and each path's launches a tick."""
+    t0 = phase(f"the wall lean (Go1, A1: {LEAN_TICKS} ticks, "
+               f"{LEAN_ITERS} sweeps, the twin), the LCI walk (A1: "
+               f"{LCI_STAND} stand + {LCI_WALK} walk ticks) and the "
+               f"single-robot CI walk (A1: {CI1_STAND} + {CI1_WALK} ticks, "
+               "32 sweeps): four processes, started with config 4's")
+    lean = {rb: gates["lean", rb].result() for rb in LEAN_ROBOTS}
+    for rb, r in lean.items():
+        lean_verdict(rb, r)
+        ms = float(np.median(r["times"][LEAN_SETTLE:])) * 1e3
+        print(f"   wb_ci_lean_single_robot_tick_ms_{rb} = {ms:.2f} (median "
+              f"of the gate's ticks after tick {LEAN_SETTLE}, beside the "
+              f"other gate processes; {card}; diagnostic, host-bound; the "
+              "MPC thread's budget 10 ms)", flush=True)
+    w = gates["lci", None].result()
+    print(f"   LCI walk: launches over {LCI_WALK} walk ticks "
+          f"{w['launches']}; z after the stand {w['z_stand']:.4f} m, x "
+          f"progress {w['dx']:.4f} m, z {w['z']:.4f} m, roll "
+          f"{w['roll']:.4f}, pitch {w['pitch']:.4f} rad", flush=True)
+    want = {k: LCI_WALK * v for k, v in LCI_LAUNCHES.items()}
+    check(w["launches"] == want,
+          f"LCI walk: launches {w['launches']}, want {want}")
+    check(w["finite"], "LCI walk: non-finite")
+    check(0.27 < w["z_stand"] < 0.33, f"LCI stand: z {w['z_stand']}")
+    check(w["dx"] > 0.05, f"LCI walk: dx {w['dx']}")
+    check(w["z"] > 0.2, f"LCI walk: z {w['z']}")
+    check(abs(w["roll"]) < 0.2 and abs(w["pitch"]) < 0.2,
+          f"LCI walk: roll {w['roll']}, pitch {w['pitch']}")
+    c = gates["ci1", None].result()
+    print(f"   single-robot CI walk: launches over {CI1_WALK} walk ticks "
+          f"{c['launches']}; x {c['x']:.4f} m, z {c['z']:.4f} m, min z "
+          f"{c['z_min']:.4f} m, worst |roll|,|pitch| {c['worst_rp']:.4f} "
+          "rad", flush=True)
+    check(c["launches"] == {"ci_sweeps": CI1_WALK},
+          f"CI walk: launches {c['launches']}")
+    check(c["finite"], "CI walk: non-finite")
+    check(c["x"] > 0.15, f"CI walk: x {c['x']}")
+    check(0.25 < c["z"] < 0.35, f"CI walk: z {c['z']}")
+    check(c["worst_rp"] < 0.25, f"CI walk: worst roll/pitch {c['worst_rp']}")
+    check(c["z_min"] > 0.1, f"CI walk: fell (min z {c['z_min']})")
+    done(t0)
+    per_tick = {
+        "lean": {k: v // LEAN_TICKS for k, v in
+                 lean[LEAN_ROBOTS[0]]["launches"].items()},
+        "lci_walk": {k: v // LCI_WALK for k, v in w["launches"].items()},
+        "ci_single": {k: v // CI1_WALK for k, v in c["launches"].items()}}
+    return ({rb: (r["A"], r["R"]) for rb, r in lean.items()}, w["qps"],
+            per_tick)
+
+
+def phase_lci_timed(dev, card):
+    """The LCI walk's and the single-robot CI walk's ticks, alone on the
+    card: LCI_TIMED_STAND stand ticks, then LCI_TIMED walk ticks, each
+    timed. Returns the median ms of each."""
+    t0 = phase(f"the LCI walk and the single-robot CI walk timed, alone on "
+               f"the card: {LCI_TIMED_STAND} stand + {LCI_TIMED} walk ticks")
+    out = {}
+    for kind, name, want in (
+            ("lci", "lci_walk_single_robot_tick_ms", LCI_LAUNCHES),
+            ("ci", "ci_single_robot_tick_ms_flat", {"ci_sweeps": 1})):
+        r = lci_ticks(dev, kind, LCI_TIMED_STAND, LCI_TIMED, LCI_TIMED)
+        want = {k: LCI_TIMED * v for k, v in want.items()}
+        check(r["launches"] == want, f"{name}: launches {r['launches']}")
+        out[kind] = float(np.median(r["times"])) * 1e3
+        print(f"   {name} = {out[kind]:.2f} (median of {LCI_TIMED} walk "
+              f"ticks; {card}; diagnostic; the MPC thread's budget 10 ms)",
+              flush=True)
+    done(t0)
+    return out
+
+
+def lean_batch(dev, batch, seed):
+    """Lean states perturbed from a seed about the lean pose (position 1
+    cm, attitude 0.03 rad, rates 0.05, feet 3 mm) with their templates,
+    the A1 params and the wall: the batched wall solve's inputs."""
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc
+
+    L = lean_setup(dev, "a1")
+    tgt, pos, eul = L["pose"]
+    p = L["params"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = torch.tensor([0.01] * 3 + [0.03] * 3 + [0.05] * 6
+                         + [0.003] * 12, device=dev)
+    z0 = (torch.cat([pos, eul, torch.zeros(6, device=dev), tgt.reshape(12)])
+          + scale * torch.randn((batch, 24), generator=gen, device=dev))
+    rz, ru, U0 = ci_mpc.make_ci_lean_reference(z0, L["wall"], tgt, pos, eul,
+                                               p, None)
+    args = (z0, U0, rz, ru, None, p.mass, p.trunk_inertia.expand(batch, 3, 3),
+            p.mu)
+    return args, dict(iters=LEAN_ITERS, wall=L["wall"])
+
+
+def phase_wall_k46(dev, card, systems):
+    """Kernels K4 + K6 on the wall branch: against their plain versions
+    (`check_k4_k6`, the box-step phase's criterion) on the gain systems of
+    each lean gate's first tick (B=1, 240 solves) and of one batched wall
+    solve (`ci_solve_batched(wall=...)`, "lanes") over LEAN_B lean states
+    perturbed from a seed; that whole solve against "plain" in float32
+    and float64 (every scenario within K7_TOL's bracket of plain or nearer
+    float64 than plain, and no farther from float64 than plain x1.5 + the
+    tolerance at the 99th percentile); then
+    K4 and K6 timed at the lean's shape, n=24, m=25, B=1."""
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc
+    from legged_mpc_control_tpu_torch.ops import chol_kernel
+
+    t0 = phase(f"K4 + K6 on the wall branch vs plain: the lean gates' first "
+               f"ticks (B=1) and a batched wall solve, B={LEAN_B}, "
+               f"{LEAN_ITERS} sweeps")
+    errs = []
+    for rb, (A, R) in systems.items():
+        errs.append(check_k4_k6(A.to(dev), R.to(dev), 0.9,
+                                f"lean {rb}, tick 1")[1])
+    args, kw = lean_batch(dev, LEAN_B, 5)
+    seen = []
+    factor, solve = chol_kernel.cholesky_cuda, chol_kernel.cho_solve_multi_cuda
+
+    def cap_factor(A):
+        seen.append([A.clone()])
+        return factor(A)
+
+    def cap_solve(F, R):
+        seen[-1].append(R.clone())
+        return solve(F, R)
+    with patched(chol_kernel, cholesky_cuda=cap_factor,
+                 cho_solve_multi_cuda=cap_solve):
+        lanes = ci_mpc.ci_solve_batched(*args, backend="lanes", **kw)
+    check(len(seen) == LEAN_ITERS * 10,
+          f"the wall solve made {len(seen)} gain solves")
+    A = torch.cat([a for a, _ in seen])
+    R = torch.cat([r for _, r in seen])
+    errs.append(check_k4_k6(A, R, 0.9, f"batched wall solve, {len(seen)} "
+                            f"stages x B={LEAN_B}")[1])
+    plain = ci_mpc.ci_solve_batched(*args, backend="plain", **kw)
+    args64 = tuple(a.double() if torch.is_tensor(a) else a for a in args)
+    kw64 = dict(kw, wall=kw["wall"].replace(
+        point=kw["wall"].point.double(), normal=kw["wall"].normal.double()))
+    ref64 = ci_mpc.ci_solve_batched(*args64, backend="plain", **kw64)
+
+    def scaled(out):
+        U, Z, cost = out
+        return (torch.cat([U[..., :12] / 50.0, U[..., 12:]], -1), Z, cost)
+    check(all(bool(torch.isfinite(x).all()) for x in lanes),
+          "the wall solve on K4 + K6: non-finite")
+    e = k7_errors(scaled(lanes), scaled(plain))
+    e64, p64 = (k7_errors(scaled(x), scaled(ref64)) for x in (lanes, plain))
+    for name, tol in K7_TOL.items():
+        k99 = float(torch.quantile(e64[name], 0.99))
+        q99 = float(torch.quantile(p64[name], 0.99))
+        # scenario-wise (ROADMAP fault 1's form): within the bracket of
+        # plain, or nearer float64 than plain is
+        out = (e[name] > tol) & (e64[name] > p64[name])
+        print(f"   whole wall solve, lanes vs plain {name}: max "
+              f"{float(e[name].max()):.3e} (tol {tol}), "
+              f"{int((e[name] > tol).sum())} of {LEAN_B} beyond it, "
+              f"{int(out.sum())} of them farther from float64 than plain; "
+              f"vs float64 p99: lanes {k99:.3e}, plain {q99:.3e}",
+              flush=True)
+        check(not bool(out.any()), f"the wall solve: lanes vs plain {name}"
+              f" {float(e[name].max())}, farther from float64 than plain")
+        check(k99 <= 1.5 * q99 + tol,
+              f"the wall solve {name}: p99 {k99} from float64, plain {q99}")
+    A1, R1 = systems[LEAN_ROBOTS[0]]
+    A1, R1 = A1[:1].to(dev), R1[:1].to(dev)
+    n, m = R1.shape[1], R1.shape[2]
+    F1 = chol_kernel.cholesky_cuda(A1)
+    out = dict(
+        err6=max(errs),
+        ms4=cuda_ms(lambda: chol_kernel.cholesky_cuda(A1), reps=50),
+        plain4=cuda_ms(lambda: chol_kernel.cholesky_plain(A1), reps=10),
+        lib4=cuda_ms(lambda: torch.linalg.cholesky_ex(A1), reps=10),
+        ms6=cuda_ms(lambda: chol_kernel.cho_solve_multi_cuda(F1, R1),
+                    reps=50),
+        plain6=cuda_ms(lambda: chol_kernel.cho_solve_multi_plain(F1, R1),
+                       reps=10),
+        lib6=cuda_ms(lambda: torch.cholesky_solve(R1, F1.tril()), reps=10),
+        bound4=bound(tri(n) * 2 * 4, n ** 3 / 3),
+        bound6=bound((tri(n) + 2 * n * m) * 4, 2 * n * n * m))
+    print(f"   time at B=1 ({card}): K4 n={n} kernel {out['ms4']:.4f} ms, "
+          f"plain {out['plain4']:.4f} ms, torch.linalg.cholesky_ex "
+          f"{out['lib4']:.4f} ms, bound {out['bound4'][0]:.3g} ms "
+          f"({out['bound4'][1]}); K6 n={n}, m={m} kernel {out['ms6']:.4f} "
+          f"ms, plain {out['plain6']:.4f} ms, torch.cholesky_solve "
+          f"{out['lib6']:.4f} ms, bound {out['bound6'][0]:.3g} ms "
+          f"({out['bound6'][1]})", flush=True)
+    done(t0)
+    return out
+
+
+def phase_lci_pdip(dev, card, qps):
+    """Kernels K4 + K5 at n=96, B=1 on the LCI walk's own condensed QPs
+    (every walk tick's, as `make_walk_policy` hands them to the PDIP), in
+    the PDIP phase's form: each QP solved at B=1 (12 iterations, the
+    unbatched rule) with the kernels, with their plain versions and in
+    float64; the solves' GRFs held, as the PDIP phase holds them, at the
+    99th percentile no farther from float64 than plain x1.5 + PDIP_BRACKET
+    and by the size of the tail beyond the bracket. The PDIP phase's third
+    rule, the two float32 solves within the bracket of each other, does not
+    hold here for any float32 factorization: at 12 iterations both sit
+    ~0.2 N from the float64 solve (whose freeze, clip and regularization
+    differ by design), and a factor computed in float64 and rounded moves
+    the plain solve as far as the kernels do (`tools/lci_pdip_rounding.py`;
+    its difference is printed). Then the Newton matrices of the kernels' solves held by the factor's
+    and the solve's residuals, 4x plain's + 1e-6, where the float64
+    pivots are robust; then K4 and K5 timed at n=96, B=1."""
+    from legged_mpc_control_tpu_torch.mpc import pdip
+    from legged_mpc_control_tpu_torch.ops import chol_kernel
+
+    t0 = phase(f"K4 + K5 at n=96, B=1 vs plain and float64: the LCI walk's "
+               f"{len(qps)} QPs, 12 PDIP iterations each")
+    mats = []
+    factor = chol_kernel.cholesky_cuda
+
+    def capture(K):
+        mats.append(K.clone())
+        return factor(K)
+
+    def solve(P, q, mu, fz_max, c, dt=torch.float32):
+        return pdip._solve(P.to(dev, dt)[None], q.to(dev, dt)[None],
+                           mu.to(dev, dt), fz_max.to(dev, dt),
+                           c.to(dev, dt)[None], iters=12, tol=None,
+                           warm_u=None, dual_freeze=False).u[0]
+    with patched(chol_kernel, cholesky_cuda=capture):
+        u_k = torch.stack([solve(*qp) for qp in qps])
+    plain = dict(cholesky_cuda=chol_kernel.cholesky_plain,
+                 cho_solve_cuda=chol_kernel.cho_solve_plain)
+    with patched(chol_kernel, **plain):
+        u_p = torch.stack([solve(*qp) for qp in qps])
+        u64 = torch.stack([solve(*qp, dt=torch.float64) for qp in qps])
+    check(bool(torch.isfinite(u_k).all()), "LCI PDIP on K4/K5: non-finite")
+    d = (u_k - u_p).abs().amax(-1).double()
+    d_k64 = (u_k.double() - u64).abs().amax(-1)
+    d_p64 = (u_p.double() - u64).abs().amax(-1)
+    p99, k99, q99 = (float(torch.quantile(x, 0.99))
+                     for x in (d, d_k64, d_p64))
+    n_ok, n_op = (int((x > PDIP_BRACKET).sum()) for x in (d_k64, d_p64))
+    print(f"   |u_kernels - u_plain| per QP: p99 {p99:.3e}, max "
+          f"{float(d.max()):.3e} N ({int((d > PDIP_BRACKET).sum())} of "
+          f"{len(qps)} over {PDIP_BRACKET} N); vs float64 p99: kernels "
+          f"{k99:.3e}, plain {q99:.3e} N; over {PDIP_BRACKET} N from "
+          f"float64: kernels {n_ok}, plain {n_op}", flush=True)
+    check(k99 <= 1.5 * q99 + PDIP_BRACKET,
+          f"LCI PDIP: p99 {k99} N from float64, plain {q99} N")
+    check(n_ok <= 3 * n_op + PDIP_TAIL_SLACK,
+          f"LCI PDIP: {n_ok} QPs over {PDIP_BRACKET} N from float64")
+    K = torch.cat(mats)
+    check(K.shape[1:] == (96, 96) and len(mats) == 12 * len(qps),
+          f"LCI PDIP: {len(mats)} Newton matrices of shape {K.shape[1:]}")
+    gen = torch.Generator(device=dev).manual_seed(96)
+    rhs = torch.randn((K.shape[0], 96), generator=gen, device=dev)
+    F, Fp = chol_kernel.cholesky_cuda(K), chol_kernel.cholesky_plain(K)
+    x = chol_kernel.cho_solve_cuda(F, rhs)
+    xp = chol_kernel.cho_solve_plain(Fp, rhs)
+    L64, info = torch.linalg.cholesky_ex(K.double())
+    robust = (info == 0) & ((L64.diagonal(dim1=-2, dim2=-1) ** 2
+                             / K.double().diagonal(dim1=-2, dim2=-1)).amin(-1)
+                            >= ROBUST_PIVOT)
+    check(bool(torch.isfinite(F[robust]).all() & torch.isfinite(
+        x[robust]).all()), "K4 + K5 at n=96: a robust matrix failed")
+
+    def resid(F, x):
+        Kd = K[robust].double()
+        L = F[robust].double().tril()
+        rf = float(((L @ L.mT - Kd).abs().amax((-1, -2))
+                    / Kd.abs().amax((-1, -2))).max())
+        r = (Kd @ x[robust].double()[..., None])[..., 0] - rhs[robust].double()
+        rs = float((r.abs().amax(-1) / rhs[robust].double().abs().amax(-1))
+                   .max())
+        return rf, rs
+    (rf, rs), (rfp, rsp) = resid(F, x), resid(Fp, xp)
+    err4 = float((F - Fp)[robust].abs().max())
+    err5 = float((x - xp)[robust].abs().max())
+    print(f"   {int(robust.sum())} of {K.shape[0]} Newton matrices with robust"
+          f" pivots: factor residual kernel {rf:.3e}, plain {rfp:.3e}; solve"
+          f" residual kernel {rs:.3e}, plain {rsp:.3e}; max |F - F_plain| "
+          f"{err4:.3e}, max |x - x_plain| {err5:.3e}", flush=True)
+    check(rf <= 4 * rfp + 1e-6, f"K4 at n=96: residual {rf} vs {rfp}")
+    check(rs <= 4 * rsp + 1e-6, f"K5 at n=96: residual {rs} vs {rsp}")
+    K1, b1 = K[:1], rhs[:1]
+    F1 = chol_kernel.cholesky_cuda(K1)
+    n = 96
+    out = dict(
+        err4=err4, err5=err5,
+        ms4=cuda_ms(lambda: chol_kernel.cholesky_cuda(K1), reps=50),
+        plain4=cuda_ms(lambda: chol_kernel.cholesky_plain(K1), reps=10),
+        lib4=cuda_ms(lambda: torch.linalg.cholesky_ex(K1), reps=10),
+        ms5=cuda_ms(lambda: chol_kernel.cho_solve_cuda(F1, b1), reps=50),
+        plain5=cuda_ms(lambda: chol_kernel.cho_solve_plain(F1, b1),
+                       reps=10),
+        lib5=cuda_ms(lambda: torch.cholesky_solve(b1[..., None], F1.tril()),
+                     reps=10),
+        bound4=bound(tri(n) * 2 * 4, n ** 3 / 3),
+        bound5=bound((tri(n) + 2 * n) * 4, 2 * n * n))
+    print(f"   time at B=1 ({card}): K4 n=96 kernel {out['ms4']:.4f} ms, "
+          f"plain {out['plain4']:.4f} ms, torch.linalg.cholesky_ex "
+          f"{out['lib4']:.4f} ms, bound {out['bound4'][0]:.3g} ms "
+          f"({out['bound4'][1]}); K5 kernel {out['ms5']:.4f} ms, plain "
+          f"{out['plain5']:.4f} ms, torch.cholesky_solve {out['lib5']:.4f} "
+          f"ms, bound {out['bound5'][0]:.3g} ms ({out['bound5'][1]})",
+          flush=True)
+    done(t0)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device available")
@@ -2310,11 +2903,15 @@ def main():
     terrain_launches, _, terrain_state = phase_ci_terrain(dev, card)
     k6 = phase_k6(dev, card, terrain_state)
     with concurrent.futures.ProcessPoolExecutor(
-            7, mp_context=multiprocessing.get_context("spawn")) as pool:
+            11, mp_context=multiprocessing.get_context("spawn")) as pool:
         _, gates = phase_config4(dev, card, pool)
         phase_wb(dev, card, gates)
+        lean_systems, lci_qps, per_tick = phase_lci(dev, card, gates)
     config4_timed(dev, card)
     wb_k45, _, _ = phase_wb_timed(dev, card)
+    phase_lci_timed(dev, card)
+    wall = phase_wall_k46(dev, card, lean_systems)
+    n96 = phase_lci_pdip(dev, card, lci_qps)
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
     # the main path's shape, B=4096 and n=120, on the early matrices: the
@@ -2358,6 +2955,20 @@ def main():
     for r, k in zip(kernels["kernels"][3:5], ("4", "5")):
         r["launches_wb"] = wb_k45["launches_wb"][r["name"]]
         r["ms_wb"] = wb_k45["ms" + k]
+    # the wall lean (K4 at n=24 and 18, K6 at n=24, m=25, K5 at n=18, B=1),
+    # the LCI walk (K4 and K5 at n=96, B=1) and the single-robot CI walk
+    # (K7 at B=1, 32 sweeps): launches a tick and times
+    rows = {r["name"]: r for r in kernels["kernels"]}
+    for name, r in rows.items():
+        for path in ("lean", "lci_walk", "ci_single"):
+            if name in per_tick[path]:
+                r["launches_" + path] = per_tick[path][name]
+    rows["chol_factor"]["ms_lean_n24_b1"] = wall["ms4"]
+    rows["chol_solve_multi"]["ms_lean_b1"] = wall["ms6"]
+    rows["chol_solve_multi"]["max_abs_err_lean"] = wall["err6"]
+    rows["chol_factor"]["ms_n96_b1"] = n96["ms4"]
+    rows["chol_solve"]["ms_n96_b1"] = n96["ms5"]
+    rows["ci_sweeps"]["ms_b1"] = k7["ms1"]
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,12 @@ of one) through the unbatched condensed PDIP. `closed_loop_tick_wb` and
 (`sim/wb_sim.py`) through the same per-substep loop.
 Ported: kf_type 0 (ground-truth feedback), 1 (the linear KF) and 2 (the
 EKF, `estimation/ekf.py`); low_level_type 0 (J^T tau control) and 1 (the
-hierarchical WBC, `control/wbc.py`); the contact-implicit MPC tick
-(`closed_loop_tick_lci_batched`, the CI engine of `mpc/ci_mpc.py` behind the
-LCI seam of `mpc/lci_mpc.py`).
+hierarchical WBC, `control/wbc.py`); the contact-implicit MPC ticks (the
+LCI seam of `mpc/lci_mpc.py` with its policies: the CI engine of
+`mpc/ci_mpc.py` or the distilled convex walk): `closed_loop_tick_lci_batched`
+for a batch, `closed_loop_tick_lci` for one robot on the SRB simulator and
+`closed_loop_tick_lci_wb` for one robot on the articulated twin, with an
+optional wall (the CI wall lean).
 """
 
 from dataclasses import dataclass
@@ -418,12 +421,14 @@ def _srb_world(params: RobotParams, dt, terrain):
     return step, sense
 
 
-def _wb_world(model, params: RobotParams, dt, n_inner, terrain):
+def _wb_world(model, params: RobotParams, dt, n_inner, terrain, wall=None):
     """The articulated twin as the per-substep loop's world (its mass
-    matrices solved by K4 + K5 on CUDA tensors)."""
+    matrices solved by K4 + K5 on CUDA tensors), with an optional
+    `sim.terrain.Wall`."""
     def step(sim, tau):
         return wb_sim.wb_sim_step_batched(sim, tau, model, params, dt,
-                                          n_inner=n_inner, terrain=terrain)
+                                          n_inner=n_inner, terrain=terrain,
+                                          wall=wall)
 
     def sense(cs, sim):
         return wb_sim.wb_read_sensors(sim)
@@ -634,4 +639,62 @@ def closed_loop_tick_lci_batched(loop: LoopState, lci_state, params:
 
     cs, sim = _substep_loop(cs, loop.sim, pb, substeps, dt_ll, 0, terrain,
                             _srb_world(pb, dt_ll, terrain))
+    return LoopState(controller=cs, sim=sim), lci_state
+
+
+def closed_loop_tick_lci(loop: LoopState, lci_state, params: RobotParams,
+                         stand_policy, walk_policy, t, *,
+                         substeps: int = C.SUBSTEPS_PER_MPC_TICK,
+                         kf_type: int = 0, low_level_type: int = 0,
+                         terrain=None):
+    """One MPC period of one robot through the LCI-MPC backend (reference:
+    LciMpc::update in the MPC thread, LciMpc.cpp:45-153, main.cpp:113-121
+    mpc_type 0): feedback, the single-robot seam `lci_mpc.lci_mpc_tick`
+    and the per-substep loop on the SRB simulator, as the JAX package runs
+    it (no substep chain), with any kf_type and low_level_type and
+    `terrain` a height field or None. `loop` and `lci_state` carry a leading axis of 1
+    (`lci_mpc.lci_init`); `params` are shared. The walk policy is a
+    stateless batch-first one (`lci_mpc.make_walk_policy`) or a
+    single-robot stateful one (`ci_mpc.make_ci_walk_policy`). Returns
+    (loop', lci_state')."""
+    _check_kf_type(kf_type)
+    _check_low_level_type(low_level_type)
+    dt_ll = C.MPC_DT / substeps
+    pb = broadcast_params(params, 1)
+    world = _srb_world(pb, dt_ll, terrain)
+    cs = feedback_update(loop.controller, world[1](loop.controller, loop.sim),
+                         pb, dt_ll, kf_type=kf_type, terrain=terrain)
+    cs, lci_state = lci_mpc.lci_mpc_tick(cs, lci_state, stand_policy,
+                                         walk_policy, t, C.MPC_DT)
+    cs, sim = _substep_loop(cs, loop.sim, pb, substeps, dt_ll, kf_type,
+                            terrain, world, low_level_type,
+                            _wbc_model(None, cs.fbk.root_pos)
+                            if low_level_type == 1 else None)
+    return LoopState(controller=cs, sim=sim), lci_state
+
+
+def closed_loop_tick_lci_wb(loop: LoopState, lci_state, params: RobotParams,
+                            model, stand_policy, walk_policy, t, *,
+                            substeps: int = C.SUBSTEPS_PER_MPC_TICK,
+                            kf_type: int = 0, low_level_type: int = 0,
+                            n_inner: int = 4, terrain=None, wall=None):
+    """`closed_loop_tick_lci` against the articulated twin, optionally with
+    a vertical `sim.terrain.Wall` in the world: the contact-implicit
+    backend at torque level through full rigid-body dynamics, and the
+    reference's CI-MPC wall lean (README.md:14) with
+    `ci_mpc.make_ci_lean_policy`. `loop.sim` a `wb_sim.WbSimState` with a
+    leading axis of 1, `model` the twin's robot and the WBC's model. On
+    CUDA tensors each sim step's mass matrices go through K4 + K5 (32
+    launches each a tick). Returns (loop', lci_state')."""
+    _check_kf_type(kf_type)
+    _check_low_level_type(low_level_type)
+    dt_ll = C.MPC_DT / substeps
+    pb = broadcast_params(params, 1)
+    world = _wb_world(model, pb, dt_ll, n_inner, terrain, wall)
+    cs = feedback_update(loop.controller, wb_sim.wb_read_sensors(loop.sim),
+                         pb, dt_ll, kf_type=kf_type, terrain=terrain)
+    cs, lci_state = lci_mpc.lci_mpc_tick(cs, lci_state, stand_policy,
+                                         walk_policy, t, C.MPC_DT)
+    cs, sim = _substep_loop(cs, loop.sim, pb, substeps, dt_ll, kf_type,
+                            terrain, world, low_level_type, model)
     return LoopState(controller=cs, sim=sim), lci_state

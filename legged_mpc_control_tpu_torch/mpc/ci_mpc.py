@@ -1,7 +1,7 @@
 """Contact-implicit MPC (`legged_mpc_control_tpu/mpc/ci_mpc.py`): trajectory
 optimization through contact, the reference's second MPC backend
 (reference: src/legged_ctrl/src/mpc_ctrl/ci_mpc/LciMpc.cpp; capability
-claim README.md:14: Go1 trot and box-step).
+claim README.md:14: Go1 trot, box-step and lean against a wall).
 
 Model: single rigid body + 4 velocity-controlled point feet,
     state z in R^24 = [pos(3), eul(3), v(3), omega(3), feet_world(12)]
@@ -9,24 +9,32 @@ Model: single rigid body + 4 velocity-controlled point feet,
 with contact through annealed, smoothed complementarity penalties against
 the terrain height field (gap = foot_z - height(foot_xy)): a smoothed
 Fischer-Burmeister residual on (fz, gap), slip while loaded, a friction
-pyramid. The solver is a batched Gauss-Newton iLQR with analytic dynamics
-Jacobians, per-foot closed-form residual Jacobians, a Riccati backward pass
-with Levenberg state regularization and a batched Cholesky gain solve, and
-a 5-candidate line search. Everything is batch-first: z0 (B, NZ), U
-(B, H, NU).
+pyramid. With a vertical `Wall` the gap and the contact normal are those of
+the whole environment (`env_gap_normal`: ground and wall blended by a
+sigmoid), the force splits into its normal and tangential parts against
+that normal, and the friction set is the circular cone. The solver is a
+batched Gauss-Newton iLQR with analytic dynamics Jacobians, closed-form
+per-foot residual Jacobians (the derivatives of `_foot_res`, held to its
+`torch.func.jacfwd` by the tests), a Riccati backward pass with Levenberg
+state regularization and a batched Cholesky gain solve, and a 5-candidate
+line search. Everything is batch-first: z0 (B, NZ), U (B, H, NU).
 
 `ci_solve_batched` runs one of three backends:
   "fused"  the whole sweep loop in one launch of kernel K7
            (`ops/ci_kernel.py`, csrc/ci_sweeps.cu): flat-zero terrain only;
   "lanes"  this module's sweeps with the gain solve on kernels K4 + K6
-           (`ops/chol_kernel.py`), any height field;
+           (`ops/chol_kernel.py`), any height field, with or without a
+           wall;
   "plain"  this module's sweeps with the library Cholesky (the JAX
            package's "xla" backend); for tests and reference runs.
 On CPU tensors every backend runs its plain version. The default on the
 card is "fused" where `ci_pallas_available` holds, else "lanes".
 
-The wall (lean) branch comes with the articulated simulator and raises
-here.
+Policies for the LCI seam (`mpc/lci_mpc.py`): the trot walk
+(`make_ci_walk_policy_batched`, and its single-robot view
+`make_ci_walk_policy`) and the wall lean of one robot
+(`make_ci_lean_policy`, on the articulated twin through
+`control/step.closed_loop_tick_lci_wb`).
 """
 
 import functools
@@ -102,14 +110,6 @@ def _const(values, dtype, device):
     return torch.tensor(values, dtype=dtype, device=device)
 
 
-def _no_wall(wall):
-    if wall is not None:
-        raise NotImplementedError(
-            "the wall (lean) branch of the contact-implicit MPC is not "
-            "ported yet: it comes with the rest of the contact-implicit "
-            "MPC (ROADMAP queue 1, item 5)")
-
-
 def _height(terrain, xy):
     """Ground height under xy (..., 2); terrain None is flat ground at 0."""
     if terrain is None:
@@ -141,6 +141,57 @@ def _fb(a, b, rho):
     """Smoothed Fischer-Burmeister: zero iff a >= 0, b >= 0 and a*b ~
     rho^2/2; negative when either is negative."""
     return a + b - torch.sqrt(a * a + b * b + rho * rho)
+
+
+def _sp_ad(x, rho):
+    """`_sp` through `torch.logaddexp` (jax.nn.softplus's own form): the
+    same values, with the sigmoid as its derivative under forward-mode
+    autodiff everywhere (`_softplus`'s clamp and abs give 1 at x = 0)."""
+    return rho * torch.logaddexp(x / rho, torch.zeros_like(x))
+
+
+def env_gap_normal(terrain, wall, p, beta=0.03):
+    """Smooth gap and contact normal of the whole environment, the ground
+    height field (None: flat ground at 0) plus an optional vertical `Wall`,
+    at points p (..., 3). The two half-space gaps are blended by a sigmoid
+    softmin of width `beta`, so gap and normal are smooth in p, the
+    ground/wall corner included: near the wall the normal turns from +z to
+    the wall's, and the closer surface owns the contact. Returns (gap (...),
+    n (..., 3))."""
+    return _blend(p[..., 2] - _height(terrain, p[..., 0:2]), wall, p, beta)
+
+
+def _blend(gap_g, wall, p, beta=0.03):
+    """`env_gap_normal` from the ground gap gap_g (...) of the points p."""
+    up = _const((0.0, 0.0, 1.0), p.dtype, p.device)
+    if wall is None:
+        return gap_g, up.expand(p.shape)
+    gap_w = terrain_mod.wall_gap(wall, p)
+    w_wall = torch.sigmoid((gap_g - gap_w) / beta)      # ~1 where the wall
+    gap = w_wall * gap_w + (1.0 - w_wall) * gap_g       # is closer
+    n = (w_wall[..., None] * wall.normal.to(p.dtype)
+         + (1.0 - w_wall[..., None]) * up)
+    n = n / torch.sqrt((n * n).sum(-1, keepdim=True) + 1e-12)
+    return gap, n
+
+
+def _wall_comp(f, w, feet, terrain, wall, mu, rho, c_fb, c_slip, c_cone):
+    """The wall branch's complementarity cost per foot, f and w (..., 4, 3)
+    unscaled, rho broadcast against (..., 4): the force split into normal
+    and tangential parts against the blended normal, the circular friction
+    cone on |f_t| (per-axis pyramid bounds mean nothing against a rotated
+    normal; the cone is the pyramid's inscribed set). Returns (comp (...,
+    4), a = f_n / F0)."""
+    gap, n = env_gap_normal(terrain, wall, feet)
+    fn = (f * n).sum(-1)
+    ft = f - fn[..., None] * n
+    wt = w - (w * n).sum(-1, keepdim=True) * n
+    a = fn / F0
+    b = gap / G0
+    ft_mag = torch.sqrt((ft * ft).sum(-1) + 1e-8)
+    return (c_fb * _fb(a, b, rho) ** 2
+            + c_slip * _sp(a, rho) * (wt * wt).sum(-1)
+            + c_cone * _sp((ft_mag - mu * fn) / F0, rho) ** 2), a
 
 
 def _dyn_b(z, uh, mass, Iw_inv, dt, s_f=1.0):
@@ -179,8 +230,8 @@ def ci_stage_cost(z, u, ref_z, ref_u, terrain, wts: CiWeights, mu, rho,
                   f_mask=None, wall=None):
     """Tracking + relaxed complementarity of stage states z (..., NZ) and
     unscaled inputs u (..., NU); rho broadcasts against the leading dims.
-    Returns (...)."""
-    _no_wall(wall)
+    With a `wall` the complementarity is `_wall_comp`'s. f_mask (..., 4):
+    feet with mask 0 pay for normal force at this stage. Returns (...)."""
     lead = z.shape[:-1]
     pos, eul, v, om = z[..., 0:3], z[..., 3:6], z[..., 6:9], z[..., 9:12]
     feet = z[..., 12:24].reshape(lead + (4, 3))
@@ -196,15 +247,21 @@ def ci_stage_cost(z, u, ref_z, ref_u, terrain, wts: CiWeights, mu, rho,
                  lead + (4, 3))) ** 2).sum((-1, -2))
              + wts.r_f * ((u[..., 0:12] - ref_u[..., 0:12]) ** 2).sum(-1)
              + wts.r_w * ((u[..., 12:24] - ref_u[..., 12:24]) ** 2).sum(-1))
-    gap = feet[..., 2] - _height(terrain, feet[..., 0:2])
-    a = fz / F0
-    b = gap / G0
-    comp = (wts.c_fb * (_fb(a, b, rho) ** 2).sum(-1)
-            + wts.c_slip * (_sp(a, rho)[..., None]
-                            * w[..., 0:2] ** 2).sum((-1, -2))
-            + wts.c_cone * (_sp((f[..., 0].abs() - mu * fz) / F0, rho) ** 2
-                            + _sp((f[..., 1].abs() - mu * fz) / F0, rho)
-                            ** 2).sum(-1))
+    if wall is None:
+        gap = feet[..., 2] - _height(terrain, feet[..., 0:2])
+        a = fz / F0
+        b = gap / G0
+        comp = (wts.c_fb * (_fb(a, b, rho) ** 2).sum(-1)
+                + wts.c_slip * (_sp(a, rho)[..., None]
+                                * w[..., 0:2] ** 2).sum((-1, -2))
+                + wts.c_cone * (_sp((f[..., 0].abs() - mu * fz) / F0, rho)
+                                ** 2
+                                + _sp((f[..., 1].abs() - mu * fz) / F0, rho)
+                                ** 2).sum(-1))
+    else:
+        comp, a = _wall_comp(f, w, feet, terrain, wall, mu, rho, wts.c_fb,
+                             wts.c_slip, wts.c_cone)
+        comp = comp.sum(-1)
     if f_mask is not None:
         comp = comp + wts.c_mask * (((1.0 - f_mask) * a) ** 2).sum(-1)
     return track + comp
@@ -313,6 +370,147 @@ def _flat_res_jac(feet, fh, wh, fm, rho, terrain, mu, s_f):
     return r, J
 
 
+def _foot_res(zeta, fm, rho, terrain, wall, mu, s_f, ground=None):
+    """Per-foot complementarity residual r (8,) of one foot's variables
+    zeta = [foot_pos(3), f_hat(3), w(3)] (force in units of s_f N); fm, rho
+    0-dim. The stage cost's complementarity part is exactly sum_i W_i
+    r_i^2 with `_res_weights`. The last two rows carry the scaled
+    normal force a and gap b (weight 0): its Jacobian also gives grad a
+    and grad b, the directions of the Fischer-Burmeister curvature
+    restoration. The quadratization uses closed forms of that Jacobian
+    (`_flat_res_jac`, `_wall_res_jac`); this function defines them, and
+    the tests take its `torch.func.jacfwd` under vmap to hold them. It is
+    written on one-element slices: under those transforms a 0-dim tensor
+    times a Python float comes out float64.
+
+    ground: (h, grad h, xy) of the height field at this foot, evaluated
+    outside the vmap (a grid lookup indexes by data, which vmap refuses);
+    the height is then h + grad h . (p_xy - xy), the same value at p and
+    the same derivative as the bilinear lookup's."""
+    p, f, wh = zeta[0:3], s_f * zeta[3:6], zeta[6:9]
+    fm, rho = fm.reshape(1), rho.reshape(1)
+    if ground is None:
+        gap_g = p[2:3] - _height(terrain, p[None, 0:2])
+    else:
+        h, hg, xy = ground
+        gap_g = p[2:3] - (h + (hg * (p[0:2] - xy)).sum(-1, keepdim=True))
+    if wall is None:
+        a = f[2:3] / F0
+        b = gap_g / G0
+        sq = torch.sqrt(_sp_ad(a, rho) + 1e-12)
+        return torch.cat([
+            _fb(a, b, rho), sq * wh[0:1], sq * wh[1:2],
+            _sp_ad((f[0:1].abs() - mu * f[2:3]) / F0, rho),
+            _sp_ad((f[1:2].abs() - mu * f[2:3]) / F0, rho),
+            (1.0 - fm) * a, a, b])
+    gap, n = _blend(gap_g, wall, p[None])
+    n = n[0]
+    fn = (f * n).sum(-1, keepdim=True)
+    ft = f - fn * n
+    wt = wh - (wh * n).sum(-1, keepdim=True) * n
+    a = fn / F0
+    b = gap / G0
+    ft_mag = torch.sqrt((ft * ft).sum(-1, keepdim=True) + 1e-8)
+    sq = torch.sqrt(_sp_ad(a, rho) + 1e-12)
+    return torch.cat([
+        _fb(a, b, rho), sq * wt,
+        _sp_ad((ft_mag - mu * fn) / F0, rho), (1.0 - fm) * a, a, b])
+
+
+def _res_weights(c_fb, c_slip, c_cone, c_mask, wall):
+    """The weights of `_foot_res`'s eight rows."""
+    zero = torch.zeros_like(c_fb)
+    if wall is None:
+        rows = (c_fb, c_slip, c_slip, c_cone, c_cone, c_mask, zero, zero)
+    else:
+        rows = (c_fb, c_slip, c_slip, c_slip, c_cone, c_mask, zero, zero)
+    return torch.stack(rows)
+
+
+def _wall_res_jac(feet, fh, wh, fm, rho, terrain, wall, mu, s_f,
+                  beta=0.03):
+    """Closed-form per-foot residuals r (..., 8) and Jacobian J (..., 8, 9)
+    of the wall branch w.r.t. zeta = [foot_pos(3), f_hat(3), w(3)]: the
+    exact derivatives of `_foot_res` with a wall (the parity tests hold
+    them to its jacfwd, and to the JAX package's); rows [fb, slip_x,
+    slip_y, slip_z, cone, mask, a, b]. rho broadcasts against feet's
+    leading dims.
+
+    With w = sigmoid((gap_g - gap_w) / beta) the blend's weight, the
+    normal n = m / |m|, m = w n_wall + (1 - w) up, moves with the foot
+    position only through w: dn/dp = u (grad w)^T with u = (I - n n^T)
+    (n_wall - up) / |m|, so every p-column below is a vector times grad
+    w, plus the gap's own gradient."""
+    dtype, dev = feet.dtype, feet.device
+    f = s_f * fh
+    hg = _height_grad(terrain, feet[..., 0:2])
+    gap_g = feet[..., 2] - _height(terrain, feet[..., 0:2])
+    gg = torch.cat([-hg, torch.ones_like(hg[..., :1])], -1)   # grad gap_g
+    nw = wall.normal.to(dtype)
+    up = _const((0.0, 0.0, 1.0), dtype, dev)
+    gap_w = terrain_mod.wall_gap(wall, feet)
+    wgt = torch.sigmoid((gap_g - gap_w) / beta)
+    dwgt = (wgt * (1.0 - wgt) / beta)[..., None] * (gg - nw)   # grad w
+    gap = wgt * gap_w + (1.0 - wgt) * gap_g
+    dgap = (wgt[..., None] * nw + (1.0 - wgt)[..., None] * gg
+            + (gap_w - gap_g)[..., None] * dwgt)
+    m = wgt[..., None] * nw + (1.0 - wgt[..., None]) * up
+    r_m = torch.sqrt((m * m).sum(-1, keepdim=True) + 1e-12)
+    n = m / r_m
+    d = nw - up
+    u = (d - n * (n * d).sum(-1, keepdim=True)) / r_m
+
+    fn = (f * n).sum(-1)
+    ft = f - fn[..., None] * n
+    wn = (wh * n).sum(-1)
+    wt = wh - wn[..., None] * n
+    a = fn / F0
+    b = gap / G0
+    ftm = torch.sqrt((ft * ft).sum(-1) + 1e-8)
+    s = torch.sqrt(a * a + b * b + rho * rho)
+    sq = torch.sqrt(_sp(a, rho) + 1e-12)
+    dsq = _sigmoid(a / rho) / (2.0 * sq)                    # d sq / d a
+    t = (ftm - mu * fn) / F0
+    sig_t = _sigmoid(t / rho)
+    ftn = (ft * n).sum(-1)
+
+    # d/dp (each a coefficient times grad w, plus the gap's gradient)
+    da_p = ((f * u).sum(-1) / F0)[..., None] * dwgt
+    db_p = dgap / G0
+    dftm_p = (-((ftn[..., None] * f + fn[..., None] * ft) * u).sum(-1)
+              / ftm)[..., None] * dwgt
+    dwt_p = -(n * (wh * u).sum(-1, keepdim=True)
+              + wn[..., None] * u)[..., :, None] * dwgt[..., None, :]
+    # d/df_hat
+    da_f = (s_f / F0) * n
+    dftm_f = s_f * (ft - ftn[..., None] * n) / ftm[..., None]
+    # d wt / d w
+    perp = (torch.eye(3, dtype=dtype, device=dev)
+            - n[..., :, None] * n[..., None, :])
+
+    ca = (1.0 - a / s)[..., None]
+    cb = (1.0 - b / s)[..., None]
+    zero3 = torch.zeros_like(feet)
+    mask = (1.0 - fm)[..., None]
+
+    def row(dp, df, dw):
+        return torch.cat([dp, df, dw], -1)
+    slip = [row(wt[..., i, None] * dsq[..., None] * da_p + sq[..., None]
+                * dwt_p[..., i, :], wt[..., i, None] * dsq[..., None] * da_f,
+                sq[..., None] * perp[..., i, :]) for i in range(3)]
+    J = torch.stack([
+        row(ca * da_p + cb * db_p, ca * da_f, zero3),
+        *slip,
+        row(sig_t[..., None] * (dftm_p - mu * F0 * da_p) / F0,
+            sig_t[..., None] * (dftm_f - mu * F0 * da_f) / F0, zero3),
+        row(mask * da_p, mask * da_f, zero3),
+        row(da_p, da_f, zero3),
+        row(db_p, zero3, zero3)], -2)
+    r = torch.stack([a + b - s, sq * wt[..., 0], sq * wt[..., 1],
+                     sq * wt[..., 2], _sp(t, rho), (1.0 - fm) * a, a, b], -1)
+    return r, J
+
+
 # per-foot variable positions inside the 48-dim stage vector zu = [z; uh]
 _FOOT_IDX = [[12 + 3 * i, 13 + 3 * i, 14 + 3 * i,
               24 + 3 * i, 25 + 3 * i, 26 + 3 * i,
@@ -346,25 +544,30 @@ def _kernel_form(wts: CiWeights, refs_z, refs_u, f_scale):
     return s_u, wvec, ref_zu
 
 
-def _quad_core(Zs, Uh, ref_zu, f_mask, terrain, wvec, mu, rho, s_f):
+def _quad_core(Zs, Uh, ref_zu, f_mask, terrain, wvec, mu, rho, s_f,
+               wall=None):
     """Per-stage exact gradient g (B,H,48) and Gauss-Newton Hessian Hm
     (B,H,48,48) of the stage cost in scaled coordinates, with the
-    Fischer-Burmeister curvature restored on its violation side."""
+    Fischer-Burmeister curvature restored on its violation side. The
+    per-foot residuals and their Jacobians are closed forms, on the ground
+    (`_flat_res_jac`) and with a wall (`_wall_res_jac`)."""
     B, H = Uh.shape[0], Uh.shape[1]
     feet = Zs[..., 12:24].reshape(B, H, 4, 3)
     fh = Uh[..., 0:12].reshape(B, H, 4, 3)
     wh = Uh[..., 12:24].reshape(B, H, 4, 3)
-    c_fb, c_slip, c_cone, c_mask = wvec[0], wvec[1], wvec[2], wvec[3]
+    c_fb = wvec[0]
     track_h = wvec[4:]
-    r, J = _flat_res_jac(feet, fh, wh, f_mask, rho[:, None, None], terrain,
-                         mu, s_f)
+    if wall is None:
+        r, J = _flat_res_jac(feet, fh, wh, f_mask, rho[:, None, None],
+                             terrain, mu, s_f)
+    else:
+        r, J = _wall_res_jac(feet, fh, wh, f_mask, rho[:, None, None],
+                             terrain, wall, mu, s_f)
     J48f = torch.einsum("bhfrn,fna->bhfra", J,
                         _foot_scatter(Uh.dtype, Uh.device))
     nres = r.shape[-1]
     J48 = J48f.reshape(B, H, 4 * nres, NZ + NU)
-    zero = torch.zeros_like(c_fb)
-    Wv = torch.stack([c_fb, c_slip, c_slip, c_cone, c_cone, c_mask, zero,
-                      zero]).repeat(4)
+    Wv = _res_weights(wvec[0], wvec[1], wvec[2], wvec[3], wall).repeat(4)
     r_all = r.reshape(B, H, 4 * nres)
     Hm = 2.0 * (J48.transpose(-1, -2) @ (Wv[:, None] * J48))
     g = 2.0 * (J48.transpose(-1, -2) @ (Wv * r_all)[..., None])[..., 0]
@@ -394,12 +597,13 @@ def _quad_ggn_b(Zs, Uh, refs_z, refs_u, f_mask, terrain, wall, wts, mu,
     """Per-stage gradient (exact) and Gauss-Newton Hessian (PSD) of the
     stage cost in scaled coordinates. Zs (B,H,NZ), Uh (B,H,NU), rho (B,).
     Returns g (B,H,48), Hm (B,H,48,48)."""
-    _no_wall(wall)
     _, wvec, ref_zu = _kernel_form(wts, refs_z, refs_u, s_f)
-    return _quad_core(Zs, Uh, ref_zu, f_mask, terrain, wvec, mu, rho, s_f)
+    return _quad_core(Zs, Uh, ref_zu, f_mask, terrain, wvec, mu, rho, s_f,
+                      wall)
 
 
-def _traj_cost_k(Z, Uh, ref_zu, refT, f_mask, terrain, wvec, mu, rho, s_f):
+def _traj_cost_k(Z, Uh, ref_zu, refT, f_mask, terrain, wvec, mu, rho, s_f,
+                 wall=None):
     """Total cost in the solver's scaled coordinates: Z (..., B, H+1, NZ),
     Uh (..., B, H, NU), rho (B,). Returns (..., B)."""
     lead = Uh.shape[:-1]
@@ -412,15 +616,18 @@ def _traj_cost_k(Z, Uh, ref_zu, refT, f_mask, terrain, wvec, mu, rho, s_f):
     f = s_f * Uh[..., 0:12].reshape(lead + (4, 3))
     w = Uh[..., 12:24].reshape(lead + (4, 3))
     rho4 = rho[:, None, None]
-    a = f[..., 2] / F0
-    b = (feet[..., 2] - _height(terrain, feet[..., 0:2])) / G0
-    t4 = (f[..., 0].abs() - mu * f[..., 2]) / F0
-    t5 = (f[..., 1].abs() - mu * f[..., 2]) / F0
-    stage = stage + (c_fb * _fb(a, b, rho4) ** 2
-                     + c_slip * _sp(a, rho4) * (w[..., 0] ** 2
-                                                + w[..., 1] ** 2)
-                     + c_cone * (_sp(t4, rho4) ** 2 + _sp(t5, rho4) ** 2)
-                     + c_mask * ((1.0 - f_mask) * a) ** 2).sum(-1)
+    if wall is None:
+        a = f[..., 2] / F0
+        b = (feet[..., 2] - _height(terrain, feet[..., 0:2])) / G0
+        t4 = (f[..., 0].abs() - mu * f[..., 2]) / F0
+        t5 = (f[..., 1].abs() - mu * f[..., 2]) / F0
+        comp = (c_fb * _fb(a, b, rho4) ** 2
+                + c_slip * _sp(a, rho4) * (w[..., 0] ** 2 + w[..., 1] ** 2)
+                + c_cone * (_sp(t4, rho4) ** 2 + _sp(t5, rho4) ** 2))
+    else:
+        comp, a = _wall_comp(f, w, feet, terrain, wall, mu, rho4, c_fb,
+                             c_slip, c_cone)
+    stage = stage + (comp + c_mask * ((1.0 - f_mask) * a) ** 2).sum(-1)
     dT = Z[..., -1, :] - refT
     hT = track_h[:NZ].clone()
     hT[9:] = 0.0
@@ -429,9 +636,10 @@ def _traj_cost_k(Z, Uh, ref_zu, refT, f_mask, terrain, wvec, mu, rho, s_f):
 
 def _sweeps(z0, Uh0, ref_zu, refT, f_mask, rho0, wvec, mu, mass, Iw_inv,
             terrain, *, iters, dt, s_f, rho_min, reg, state_reg, solve,
-            keep_nominal):
+            keep_nominal, wall=None):
     """The Gauss-Newton iLQR sweep loop in scaled coordinates (the
-    arguments of kernel K7, plus the terrain and the gain solve
+    arguments of kernel K7, plus the terrain, the wall, which both the
+    quadratization and the line-search cost see, and the gain solve
     `solve(A (B,n,n), rhs (B,n,m))`). keep_nominal: the line-search rule
     of kernel K7 (a scenario whose five candidates are all non-finite
     keeps its nominal); False: the JAX "xla" rule (it commits alpha = 1).
@@ -449,7 +657,7 @@ def _sweeps(z0, Uh0, ref_zu, refT, f_mask, rho0, wvec, mu, mass, Iw_inv,
         Zs = Z[:, :-1]
         Fz, Fu = _dyn_jac_b(Zs, Uh, mass, Iw_inv, dt, s_f)
         g, Hm = _quad_core(Zs, Uh, ref_zu, f_mask, terrain, wvec, mu, rho,
-                           s_f)
+                           s_f, wall)
         F = torch.cat([Fz, Fu], -1)                           # (B,H,24,48)
         FuT = Fu.transpose(-1, -2)
         # Levenberg state-space regularization (Tassa'12): the gains come
@@ -519,7 +727,7 @@ def _sweeps(z0, Uh0, ref_zu, refT, f_mask, rho0, wvec, mu, mass, Iw_inv,
         kff, K = backward(Z, Uh, rho)
         U2s, Z2s = forward(Z, Uh, kff, K)
         cs = _traj_cost_k(Z2s, U2s, ref_zu, refT, f_mask, terrain, wvec, mu,
-                          rho, s_f)
+                          rho, s_f, wall)
         cs = torch.where(torch.isfinite(cs), cs,
                          torch.full_like(cs, math.inf))
         cost, best = cs.min(0)          # the first minimum on ties
@@ -567,15 +775,17 @@ def ci_solve_batched(z0, U0, refs_z, refs_u, terrain, mass, inertia_w, mu,
     Force channels are optimized in units of `f_scale` N and the gain
     solve uses Levenberg state regularization Quu + mu_x Fu'Fu.
 
+    wall: an optional vertical `sim.terrain.Wall` shared by the batch (the
+    lean), seen by the quadratization and the line search.
+
     backend: "fused", "lanes" or "plain" (module docstring); None picks
     "fused" where `ci_pallas_available` holds, else "lanes" on the card
-    and "plain" on the CPU. "fused" with a non-flat terrain raises, and a
-    wall raises everywhere.
+    and "plain" on the CPU. "fused" with a non-flat terrain or a wall
+    raises (kernel K7 serves flat ground only).
 
     Returns (U (B,H,NU), Z (B,H+1,NZ), cost (B,)) at the tightest
     relaxation.
     """
-    _no_wall(wall)
     dtype, dev = z0.dtype, z0.device
     B, H = U0.shape[0], U0.shape[1]
     if backend is None:
@@ -598,6 +808,9 @@ def ci_solve_batched(z0, U0, refs_z, refs_u, terrain, mass, inertia_w, mu,
     kw = dict(iters=iters, dt=dt, s_f=f_scale, rho_min=rho_min, reg=reg,
               state_reg=state_reg)
     if backend == "fused":
+        if wall is not None:
+            raise ValueError("backend 'fused' (kernel K7) serves no wall; "
+                             "use 'lanes' for the wall branch")
         if not (terrain is None or terrain_mod.is_flat_zero(terrain)):
             raise ValueError("backend 'fused' (kernel K7) serves flat-zero "
                              "terrain only; use 'lanes' for a height field")
@@ -609,7 +822,7 @@ def ci_solve_batched(z0, U0, refs_z, refs_u, terrain, mass, inertia_w, mu,
             z0, U0 / s_u, ref_zu, refs_z[:, -1], f_mask, rho0, wvec, mu,
             mass, Iw_inv, terrain,
             solve=functools.partial(_psd_solve_b, backend=backend),
-            keep_nominal=False, **kw)
+            keep_nominal=False, wall=wall, **kw)
     return s_u * Uh, Z, cost
 
 
@@ -836,6 +1049,214 @@ def make_ci_walk_policy(params, terrain=None, velx=0.1, body_height=0.3,
     def warm_init(dtype=torch.float32, device="cuda"):
         return {k: v[0] for k, v in
                 batched.warm_init(1, dtype, device).items()}
+
+    policy.ci_stateful = True
+    policy.warm_init = warm_init
+    return policy
+
+
+def make_ci_lean_reference(z0, wall, feet_target, body_pos, body_eul,
+                           params, terrain, horizon=10, dt_plan=0.02,
+                           balance_pos=None, balance_feet=None):
+    """Wall-lean hold template of a batch (reference capability: README.md:14
+    "lean against wall"): every stage holds the lean pose, the body at
+    (body_pos, body_eul) (3,) or (B,3) and the feet at feet_target (4,3) or
+    (B,4,3), typically the front feet on the wall plane and the rear feet
+    on the ground. z0 (B,NZ); terrain None is flat ground.
+
+    The input template is an equilibrium at the wall-normal preload
+    f_wall_n = 20 N: planar (x-z) static balance over the n_wall wall feet
+    and the n_ground ground feet,
+        fx_ground = -fn n_x n_wall / n_ground       (cancel the wall press)
+        n_wall fw + n_ground fz = m g               (weight)
+        n_wall r_wx fw + n_ground r_gx fz
+            = n_wall fn (r_gz - r_wz) (-n_x)        (pitch torque)
+    solved for the wall feet's vertical share fw (clipped to 0.9 mu fn) and
+    the ground load fz, with the levers taken from balance_pos (B,3) and
+    balance_feet (B,4,3) when given (the policy passes the measured pose,
+    so the template is an equilibrium where the robot stands). A clipped
+    proportional velocity reference turns the pose error into motion the
+    first stage executes. The complementarity, not the template, owns the
+    physics. Returns (refs_z (B,H+1,NZ), refs_u (B,H,NU), U0 = refs_u)."""
+    dtype, dev = z0.dtype, z0.device
+    B = z0.shape[0]
+    tgt = feet_target.to(dtype).expand(B, 4, 3)
+    body_pos = body_pos.to(dtype).expand(B, 3)
+    body_eul = body_eul.to(dtype).expand(B, 3)
+    _, n = env_gap_normal(terrain, wall, tgt)
+    on_wall = (terrain_mod.wall_gap(wall, tgt)
+               < tgt[..., 2] - _height(terrain, tgt[..., 0:2]))  # (B,4)
+    ow = on_wall[..., None]
+    mg = params.mass.to(dtype) * GRAV
+    mu = params.mu.to(dtype)
+    n_wall = torch.clamp(on_wall.sum(-1), min=1).to(dtype)
+    n_ground = torch.clamp((~on_wall).sum(-1), min=1).to(dtype)
+    f_wall_n = 20.0
+    body = body_pos if balance_pos is None else balance_pos
+    bal_feet = tgt if balance_feet is None else balance_feet
+    zero = torch.zeros_like(bal_feet)
+    r_w = torch.where(ow, bal_feet - body[:, None], zero).sum(1) \
+        / n_wall[:, None]
+    r_g = torch.where(ow, zero, bal_feet - body[:, None]).sum(1) \
+        / n_ground[:, None]
+    nx = torch.where(ow, n, torch.zeros_like(n)).sum(1)[:, 0] / n_wall
+    # 2x2 solve in the aggregates a = n_wall fw, b = n_ground fz:
+    #   [1, 1; r_wx, r_gx] [a, b] = [m g, c2]
+    c2 = n_wall * f_wall_n * (r_g[:, 2] - r_w[:, 2]) * (-nx)
+    det = r_g[:, 0] - r_w[:, 0]
+    # a sign-preserving clamp of a degenerate geometry (a fixed +eps would
+    # flip the solve's sign for a small negative det)
+    eps = torch.where(det < 0, -torch.ones_like(det), torch.ones_like(det))
+    safe_det = torch.where(det.abs() < 1e-6, 1e-6 * eps, det)
+    a = (c2 - r_g[:, 0] * mg) / (-safe_det)
+    cap = 0.9 * mu * f_wall_n
+    fw = torch.minimum(torch.maximum(a / n_wall, -cap), cap)
+    fz_g = (mg - n_wall * fw) / n_ground
+    up = _const((0.0, 0.0, 1.0), dtype, dev)
+    f_wall = f_wall_n * n + up * fw[:, None, None]
+    fx_g = (-f_wall_n * nx * n_wall / n_ground)[:, None].expand(B, 4)
+    f_ground = torch.stack([fx_g, torch.zeros_like(fx_g),
+                            fz_g[:, None].expand(B, 4)], -1)
+    f0 = torch.where(ow, f_wall, f_ground)
+    # restoring velocity references toward the nominal pose: with zero
+    # references the velocity-damped plan hovers wherever the tick starts,
+    # and a realized-force surplus integrates into drift
+    v_ref = torch.clamp(1.5 * (body_pos - z0[:, 0:3]), -0.15, 0.15)
+    om_ref = torch.clamp(2.0 * (body_eul - z0[:, 3:6]), -0.3, 0.3)
+    zr = torch.cat([body_pos, body_eul, v_ref, om_ref, tgt.reshape(B, 12)],
+                   -1)
+    refs_z = zr[:, None].expand(B, horizon + 1, NZ)
+    refs_u = torch.cat([f0.reshape(B, 12), torch.zeros_like(f0).reshape(
+        B, 12)], -1)[:, None].expand(B, horizon, NU)
+    return refs_z, refs_u, refs_u
+
+
+def make_ci_lean_policy(params, wall, feet_target, body_pos, body_eul,
+                        terrain=None, horizon=10, dt_plan=0.02, iters=24,
+                        fz_min=2.0, wts: CiWeights = None,
+                        wall_press_m=None):
+    """The contact-implicit engine holding a wall lean as a single-robot
+    stateful LciMpc-seam policy `(x (40,), t, warm) -> ((78,), warm')`, the
+    contract of `make_ci_walk_policy` (the JAX package has no batched
+    lean). Each tick re-solves the CI optimization from the measured state
+    against the ground and the wall (`ci_solve_batched(wall=...)`: K4 + K6
+    on the card); the per-foot contact normal, and with it the friction
+    geometry that lets the wall feet carry weight, comes out of
+    `env_gap_normal`, not a schedule. feet_target (4,3), body_pos and
+    body_eul (3,) tensors: the lean pose (`make_ci_lean_reference`);
+    terrain None is flat ground. warm slot: {"u": (H,NU), "valid": ()}.
+
+    The lean weights (when `wts` is None) raise r_f tenfold (the template
+    must be tracked: the minimal-force member of the lean equilibria rides
+    the friction cone, and the wall feet creep down) and the roll weight to
+    150 (the two-surface stance couples roll into wall-foot load
+    asymmetry); the other weights are the float32 defaults, as in the JAX
+    package. The wall press depth is 0.03 / mean(kp_foot) m (a spring
+    preload normalized across robots: A1 kp 15 -> 2 mm, Go1 kp 30 -> 1 mm),
+    read once here."""
+    if wall_press_m is None:
+        press_m = 0.03 / float(params.kp_foot.double().mean())
+    else:
+        press_m = float(wall_press_m)
+
+    @functools.lru_cache(maxsize=None)
+    def consts(dtype, device):
+        """The lean's constants on the card, made once: the pose, the
+        weights, the cold relaxation."""
+        def c(v):
+            return v.to(dtype=dtype, device=device)
+        if wts is None:
+            w = _cached_weights(torch.float32, device)
+            w = CiWeights(**{k: c(v) for k, v in vars(w).items()})
+            w = w.replace(r_f=torch.tensor(1e-2, dtype=dtype, device=device),
+                          q_eul=torch.tensor([150.0, 60.0, 60.0],
+                                             dtype=dtype, device=device))
+        else:
+            w = CiWeights(**{k: c(v) for k, v in vars(wts).items()})
+        return (c(feet_target), c(body_pos), c(body_eul), w,
+                torch.tensor(0.5, dtype=dtype, device=device))
+
+    def batched(x, warm):
+        dtype, dev = x.dtype, x.device
+        B = x.shape[0]
+        tgt, bpos, beul, w, rho0 = consts(dtype, dev)
+        pos, eul = x[:, 0:3], x[:, 3:6]
+        foot_abs = x[:, 6:18].reshape(B, 4, 3)
+        v, omega = x[:, 18:21], x[:, 21:24]
+        feet_w = foot_abs + pos[:, None]
+        gap0, n0 = env_gap_normal(terrain, wall, feet_w)
+        # contact gate at 15 mm (the walk's is 3 mm): a wall foot reads ~0
+        # on the world-z force sensor, so geometry is its only contact
+        # evidence, and the controller's deliberately mismatched leg
+        # kinematics projects up to ~11 mm of wall-gap bias at the lean's
+        # extended front-leg pose; the lean keeps all four feet down, so a
+        # generous gate mis-gates no swing
+        grounded_now = ((x[:, 36:40] > 2.0) | (gap0 < 0.015)).to(dtype)
+        # contact-aided foot correction: feet in contact snap onto the
+        # surface along its normal, so the measured kinematic bias does not
+        # read as penetration the optimizer would be rewarded to load
+        feet_corr = feet_w - (grounded_now * gap0)[..., None] * n0
+        z0 = torch.cat([pos, eul, v, omega, feet_corr.reshape(B, 12)], -1)
+        refs_z, refs_u, U0 = make_ci_lean_reference(
+            z0, wall, tgt, bpos, beul, params, terrain, horizon=horizon,
+            dt_plan=dt_plan, balance_pos=pos, balance_feet=feet_corr)
+        Rz = so3.rot_z(eul[:, 2])
+        inertia_w = Rz @ params.trunk_inertia.to(dtype) @ Rz.transpose(-1,
+                                                                       -2)
+        f_mask = torch.ones((B, horizon, 4), dtype=dtype, device=dev)
+        f_mask[:, 0] = grounded_now
+        U0 = torch.where(warm["valid"][:, None, None] > 0.5, warm["u"], U0)
+        U, Z, _cost = ci_solve_batched(
+            z0, U0, refs_z, refs_u, terrain, params.mass.to(dtype),
+            inertia_w, params.mu.to(dtype), w, f_mask, iters=iters,
+            dt=dt_plan, rho0=rho0, wall=wall)
+
+        f0 = U[:, 0, 0:12].reshape(B, 4, 3)
+        loaded = ((f0 * n0).sum(-1) > fz_min).to(dtype)
+        support = loaded * grounded_now
+        boot = ((loaded * (1.0 - grounded_now))[..., None]
+                * (2.0 * max(fz_min, 5.0)) * n0)
+        u = (f0 * support[..., None] + boot).reshape(B, 12)
+
+        # stance fix-up: ground feet hold their measured position; wall
+        # feet press a target pinned inside the plane (a steady spring
+        # preload; holding the measured position against the stiff wall
+        # turns contact chatter into command chatter). A foot judged in
+        # contact presses only press_m beyond its measured position (its
+        # measured wall gap is kinematic bias); an airborne one closes its
+        # gap too
+        gap_w0 = terrain_mod.wall_gap(wall, feet_w)
+        gap_g0 = feet_w[..., 2] - _height(terrain, feet_w[..., 0:2])
+        on_wall0 = gap_w0 < gap_g0
+        foot_tgt = Z[:, 1, 12:24].reshape(B, 4, 3)
+        drive = torch.where(grounded_now > 0.5, torch.zeros_like(gap_w0),
+                            gap_w0)
+        press_wall = (feet_w - (drive + press_m)[..., None]
+                      * wall.normal.to(dtype))
+        press_gnd = foot_tgt - 0.01 * n0
+        stance_tgt = torch.where(grounded_now[..., None] > 0.5, feet_w,
+                                 press_gnd)
+        stance_tgt = torch.where(on_wall0[..., None], press_wall, stance_tgt)
+        foot_tgt = torch.where(loaded[..., None] > 0.5, stance_tgt, foot_tgt)
+
+        state_des = torch.cat([refs_z[:, 1, 0:3], refs_z[:, 1, 3:6],
+                               foot_tgt.reshape(B, 12)], -1)
+        vel_des = torch.cat([refs_z[:, 1, 6:9],
+                             torch.zeros((B, 3), dtype=dtype, device=dev),
+                             U[:, 0, 12:24]], -1)
+        out = torch.cat([u, state_des, vel_des, state_des,
+                         torch.zeros((B, 12), dtype=dtype, device=dev)], -1)
+        return out, {"u": U, "valid": torch.ones((B,), dtype=dtype,
+                                                 device=dev)}
+
+    def policy(x, t, warm):
+        out, w = batched(x[None], {k: v[None] for k, v in warm.items()})
+        return out[0], {k: v[0] for k, v in w.items()}
+
+    def warm_init(dtype=torch.float32, device="cuda"):
+        device = resolve_device(device)
+        return {"u": torch.zeros((horizon, NU), dtype=dtype, device=device),
+                "valid": torch.zeros((), dtype=dtype, device=device)}
 
     policy.ci_stateful = True
     policy.warm_init = warm_init

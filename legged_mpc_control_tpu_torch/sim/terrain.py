@@ -3,9 +3,10 @@ model the simulator stands on, the Raibert footholds snap to, and the
 contact-implicit MPC's gap function reads.
 
 A `Terrain` is a regular grid of heights with bilinear interpolation, shared
-by every scenario of a batch. A `Wall` is a vertical half-space obstacle;
-it is data only here (the wall-lean policy comes with the articulated
-simulator).
+by every scenario of a batch. A `Wall` is a vertical half-space obstacle:
+the articulated twin's wall contact (`sim/wb_sim.py`) and the
+contact-implicit MPC's wall branch (`mpc/ci_mpc.env_gap_normal`, the lean
+policy) read it.
 """
 
 from dataclasses import dataclass

@@ -373,8 +373,8 @@ def test_pallas_gate_matches_jax():
 
 def test_dispatch(refs):
     """CPU: the default is "plain" in float64 and "fused" (K7's plain
-    version) in float32 on flat ground; "fused" refuses a height field,
-    a wall raises everywhere, and nothing launches a kernel."""
+    version) in float32 on flat ground; "fused" refuses a height field
+    and a wall (ROADMAP fault 6), and nothing launches a kernel."""
     cuda_build.LAUNCHES.clear()
     kw = dict(iters=2, rho0=0.3)
     default = _solve("flat", None, **kw)
@@ -394,10 +394,10 @@ def test_dispatch(refs):
     with pytest.raises(ValueError, match="unknown backend"):
         _solve("flat", "xla", **kw)
     wall = tterr.wall_at_x(0.4, dtype=F64T, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _solve("flat", None, wall=wall, **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tci.ci_stage_cost(t(ZS), t(UH), t(ZS), t(UH), None,
-                          tci.default_weights(F64T, "cpu"), MU, 0.1,
-                          wall=wall)
+    with pytest.raises(ValueError, match="serves no wall"):
+        _solve("flat", "fused", wall=wall, **kw)
+    wall32 = tterr.wall_at_x(0.4, device="cpu")
+    with pytest.raises(ValueError, match="serves no wall"):
+        tci.ci_solve_batched(*args, f_mask=t(FMASK).float(), wall=wall32,
+                             backend="fused", **kw)
     assert sum(cuda_build.LAUNCHES.values()) == 0

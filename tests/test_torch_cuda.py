@@ -716,3 +716,194 @@ def test_ci_dispatch_launches(dev):
                                             dtype=torch.float64),
                                 U.double(), None, 13.0, Iw.double(), 0.3,
                                 iters=2)
+
+
+# --- the rest of the contact-implicit MPC: the wall lean, the LCI walk ---
+
+def _lean(dev, iters=4):
+    """tests/test_ci_wall_lean.py's A1 lean on the card: the policy, the
+    twin's state at the lean pose (front feet 1.5 mm short of the wall at
+    x = 0.35, pitch -0.4) in mode 1 with the 2-tap filter warmed, and the
+    LCI state."""
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.models import kinematics as kin
+    from legged_mpc_control_tpu_torch.models import whole_body as wb
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc, lci_mpc
+    from legged_mpc_control_tpu_torch.sim import terrain as terrain_mod
+    from legged_mpc_control_tpu_torch.sim import wb_sim
+
+    params = a1_params(F32, dev).replace(mu=torch.tensor(0.6, device=dev))
+    model = wb.a1_wb_model(F32, dev)
+    wall = terrain_mod.wall_at_x(0.35, F32, dev)
+    pos = torch.tensor([0.0, 0.0, 0.32], device=dev)
+    eul = torch.tensor([0.0, -0.4, 0.0], device=dev)
+    tgt = torch.tensor([[0.35, 0.13, 0.42], [0.35, -0.13, 0.42],
+                        [-0.17, 0.13, 0.0], [-0.17, -0.13, 0.0]], device=dev)
+    feet = tgt.clone()
+    feet[0:2, 0] -= 0.0015
+    cp, sp = torch.cos(eul[1]), torch.sin(eul[1])
+    zero, one = torch.zeros((), device=dev), torch.ones((), device=dev)
+    R = torch.stack([torch.stack([cp, zero, sp]), torch.stack([zero, one,
+                                                                zero]),
+                     torch.stack([-sp, zero, cp])])
+    qj = kin.ik_legs((feet - pos) @ R, torch.tensor(
+        [0.0, 0.8, -1.6], device=dev).expand(4, 3), wb_sim.wb_rho_fix(model))
+    q = torch.cat([pos, eul, qj.reshape(12)])[None]
+    fp = wb.foot_positions(q, model)
+    sim = wb_sim.WbSimState(q=q, v=torch.zeros_like(q),
+                            anchor=fp[..., :2].clone(), wall_anchor=fp,
+                            f_contact=torch.zeros_like(fp),
+                            last_acc=torch.zeros((1, 3), device=dev))
+    cs = step.controller_init(params, 1, F32, dev)
+    cs = cs.replace(ctrl=cs.ctrl.replace(movement_mode=torch.ones(
+        (1,), dtype=torch.int32, device=dev)))
+    lean = ci_mpc.make_ci_lean_policy(params, wall, tgt, pos, eul,
+                                      iters=iters)
+    lci = lci_mpc.lci_init(F32, lean.warm_init(F32, dev), device=dev)
+    lci = lci.replace(prev_foot_pos=(feet - pos)[None],
+                      prev_foot_vel=torch.zeros((1, 4, 3), device=dev))
+    return dict(params=params, model=model, wall=wall, lean=lean,
+                stand=lci_mpc.make_stand_policy(params),
+                loop=step.LoopState(controller=cs, sim=sim), lci=lci,
+                pose=(tgt, pos, eul))
+
+
+def _captured_gain_systems(fn):
+    """The (A, R) pairs that `fn()` hands K4 + K6, in call order."""
+    seen = []
+    factor = chol_kernel.cholesky_cuda
+    solve = chol_kernel.cho_solve_multi_cuda
+
+    def cap_factor(A):
+        seen.append([A.clone()])
+        return factor(A)
+
+    def cap_solve(F, R):
+        seen[-1].append(R.clone())
+        return solve(F, R)
+    chol_kernel.cholesky_cuda = cap_factor
+    chol_kernel.cho_solve_multi_cuda = cap_solve
+    try:
+        fn()
+    finally:
+        chol_kernel.cholesky_cuda = factor
+        chol_kernel.cho_solve_multi_cuda = solve
+    return seen
+
+
+def test_ci_wall_lean_tick_launches(dev):
+    """One tick of the lean on the twin at 4 sweeps: K4 + K6 in every
+    backward stage of the wall solve (40 each, n=24), K4 + K5 on the
+    twin's mass matrices (32 each, n=18), no K7."""
+    L = _lean(dev)
+    cuda_build.LAUNCHES.clear()
+    loop, lci = step.closed_loop_tick_lci_wb(
+        L["loop"], L["lci"], L["params"], L["model"], L["stand"], L["lean"],
+        0.0, wall=L["wall"])
+    assert cuda_build.LAUNCHES == {"chol_factor": 40 + 32,
+                                   "chol_solve_multi": 40,
+                                   "chol_solve": 32}
+    assert bool(torch.isfinite(loop.sim.q).all())
+    assert float(lci.policy_warm["valid"]) == 1.0
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+def test_ci_wall_gain_systems_k4_k6(dev, batch):
+    """K4 + K6 on the wall branch's own stage systems (Quu + Rr, [Qu | Qux
+    + Rx]) of a lean solve from seeded states about the lean pose,
+    against the plain versions: K6 on K4's factor elementwise, the path
+    by its backward error."""
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc
+
+    L = _lean(dev)
+    tgt, pos, eul = L["pose"]
+    p = L["params"]
+    gen = torch.Generator(device=dev).manual_seed(batch)
+    z0 = torch.cat([pos, eul, torch.zeros(6, device=dev), tgt.reshape(12)])
+    z0 = z0 + 0.003 * torch.randn((batch, 24), generator=gen, device=dev)
+    rz, ru, U0 = ci_mpc.make_ci_lean_reference(z0, L["wall"], tgt, pos, eul,
+                                               p, None)
+    seen = _captured_gain_systems(lambda: ci_mpc.ci_solve_batched(
+        z0, U0, rz, ru, None, p.mass, p.trunk_inertia.expand(batch, 3, 3),
+        p.mu, iters=4, wall=L["wall"], backend="lanes"))
+    assert len(seen) == 40
+    for A, R in seen[::7]:
+        F = chol_kernel.cholesky_cuda(A)
+        X = chol_kernel.cho_solve_multi_cuda(F, R)
+        Xp = chol_kernel.cho_solve_multi_plain(F, R)
+        assert bool(torch.isfinite(X).all())
+        assert float(((X - Xp).abs().amax((-1, -2))
+                      / Xp.abs().amax((-1, -2))).max()) < 1e-3
+        A64 = A.double()
+        r = (A64 @ X.double() - R.double()).abs().amax((-1, -2))
+        scale = A64.abs().sum(-1).amax(-1) * X.double().abs().amax((-1, -2))
+        assert float((r / scale).max()) < 1e-5
+
+
+def test_lci_walk_tick_chol_n96(dev):
+    """The `--mpc lci` walk (`make_walk_policy`, H=8, 12 PDIP iterations)
+    on one robot: K4 12 and K5 24 times a tick at n=96, B=1, no other
+    kernel; K4 + K5 on the walk's own Newton matrices against plain."""
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.mpc import lci_mpc
+    from legged_mpc_control_tpu_torch.sim import srb_sim
+
+    params = a1_params(F32, dev)
+    loop = step.LoopState(
+        controller=step.controller_init(params, 1, F32, dev),
+        sim=srb_sim.sim_init(params, torch.full((1,), 0.3), F32, dev))
+    lci = lci_mpc.lci_init(F32, device=dev)
+    stand = lci_mpc.make_stand_policy(params)
+    walk = lci_mpc.make_walk_policy(params)
+    seen = []
+    factor = chol_kernel.cholesky_cuda
+
+    def cap(K):
+        seen.append(K.clone())
+        return factor(K)
+    cuda_build.LAUNCHES.clear()
+    chol_kernel.cholesky_cuda = cap
+    try:
+        for k in range(3):
+            loop, lci = step.closed_loop_tick_lci(loop, lci, params, stand,
+                                                  walk, 0.01 * k)
+    finally:
+        chol_kernel.cholesky_cuda = factor
+    assert cuda_build.LAUNCHES == {"chol_factor": 3 * 12,
+                                   "chol_solve": 3 * 24}
+    assert all(K.shape == (1, 96, 96) for K in seen)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for K in seen[::5]:
+        b = torch.randn((1, 96), generator=gen, device=dev)
+        F = chol_kernel.cholesky_cuda(K)
+        x = chol_kernel.cho_solve_cuda(F, b)
+        L = F.double().tril()
+        K64 = K.double()
+        assert float((L @ L.mT - K64).abs().max() / K64.abs().max()) < 1e-5
+        r = (K64 @ x.double()[..., None])[..., 0] - b.double()
+        xp = chol_kernel.cho_solve_plain(chol_kernel.cholesky_plain(K), b)
+        rp = (K64 @ xp.double()[..., None])[..., 0] - b.double()
+        assert float(r.abs().max()) <= 4 * float(rp.abs().max()) + 1e-6
+    assert bool(torch.isfinite(loop.sim.pos).all())
+
+
+def test_single_robot_ci_walk_launches_k7(dev):
+    """The single-robot flat CI walk (`make_ci_walk_policy`, 32 sweeps) on
+    the SRB tick: K7 once a tick at B=1, the per-substep loop (no K2)."""
+    from legged_mpc_control_tpu_torch.config import a1_params
+    from legged_mpc_control_tpu_torch.mpc import ci_mpc, lci_mpc
+    from legged_mpc_control_tpu_torch.sim import srb_sim
+
+    params = a1_params(F32, dev)
+    walk = ci_mpc.make_ci_walk_policy(params, velx=0.1)
+    loop = step.LoopState(
+        controller=step.controller_init(params, 1, F32, dev),
+        sim=srb_sim.sim_init(params, torch.full((1,), 0.3), F32, dev))
+    lci = lci_mpc.lci_init(F32, walk.warm_init(F32, dev), device=dev)
+    cuda_build.LAUNCHES.clear()
+    for k in range(2):
+        loop, lci = step.closed_loop_tick_lci(
+            loop, lci, params, lci_mpc.make_stand_policy(params), walk,
+            0.01 * k)
+    assert cuda_build.LAUNCHES == {"ci_sweeps": 2}
+    assert bool(torch.isfinite(loop.sim.pos).all())

@@ -226,8 +226,9 @@ def test_randomize_params_draws_from_the_generator():
 
 def test_low_level_type_1_raises(small_loop):
     """low_level_type 2 does not exist (0 is J^T tau control, 1 the WBC):
-    every entry point refuses it. The contact-implicit MPC's wall branch is
-    not ported yet: the CI solve refuses a wall."""
+    every entry point refuses it, and so do the ticks of the LCI seam. The
+    contact-implicit MPC's fused kernel K7 serves no wall: the CI solve
+    refuses backend "fused" with one (ROADMAP fault 6)."""
     loop, params, _ = small_loop
     pattern = gait.trot_pattern(torch.float32, CPU)
     wb_loop, p = _wb_loop()
@@ -248,9 +249,21 @@ def test_low_level_type_1_raises(small_loop):
     for call in calls:
         with pytest.raises(NotImplementedError):
             call()
+    lci_calls = [
+        lambda: step.closed_loop_tick_lci(loop, None, params, None, None,
+                                          0.0, low_level_type=2),
+        lambda: step.closed_loop_tick_lci_wb(wb_loop, None, p, model, None,
+                                             None, 0.0, low_level_type=2)]
+    for call in lci_calls:
+        with pytest.raises(NotImplementedError):
+            call()
     wall = terrain.wall_at_x(0.4, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ci_mpc._no_wall(wall)
+    z0 = torch.zeros((1, ci_mpc.NZ))
+    U0 = torch.zeros((1, 10, ci_mpc.NU))
+    with pytest.raises(ValueError, match="serves no wall"):
+        ci_mpc.ci_solve_batched(z0, U0, torch.zeros((1, 11, ci_mpc.NZ)), U0,
+                                None, 12.0, torch.eye(3)[None], 0.6,
+                                wall=wall, backend="fused")
 
 
 def test_unknown_solver_raises(small_loop):
@@ -289,6 +302,10 @@ ENTRY_POINTS = {
             go1_params(device=CPU)).warm_init(2),
     "ci_walk_policy.warm_init": lambda: ci_mpc.make_ci_walk_policy(
         go1_params(device=CPU)).warm_init(),
+    "lci_init": lambda: lci_mpc.lci_init(),
+    "ci_lean_policy.warm_init": lambda: ci_mpc.make_ci_lean_policy(
+        go1_params(device=CPU), terrain.wall_at_x(0.35, device=CPU),
+        torch.zeros(4, 3), torch.zeros(3), torch.zeros(3)).warm_init(),
     "a1_wb_model": lambda: wb.a1_wb_model(),
     "go1_wb_model": lambda: wb.go1_wb_model(),
     "wb_sim_init": lambda: wb_sim.wb_sim_init(
