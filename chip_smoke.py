@@ -43,7 +43,19 @@ walk of tests/test_ci_mpc.py (`make_ci_walk_policy`, K7 at B=1 once a
 tick); then the two walks' ticks timed alone, K4 + K6 against their plain
 versions on the lean's own gain systems and on a batched wall solve (and
 that whole solve, "lanes" against "plain"), and K4 + K5 at n=96, B=1 on
-the LCI walk's own QPs against plain and float64. Exits non-zero on any
+the LCI walk's own QPs against plain and float64. The CLI
+(`python -m legged_mpc_control_tpu_torch`, `main.main`) runs its three
+`--mpc` paths in three more processes beside those gate runs (convex: K4 +
+K5 at B=1, 15 and 30 a tick; lci: K4 12 and K5 24 a walking tick at
+n=96; ci: K7 once a walking tick), with `--bag` read back, and a fourth
+process runs it with `--profile` and once as a real subprocess. Last,
+BASELINE config 5, the 65,536-scenario Go1 sweep (`parallel/
+distributed.make_sweep`, K1 + K2 once a tick): two reps and a sharded
+checkpoint, a resumed run that must equal an uninterrupted rep bit for
+bit, K1 and K2 against their plain versions at B=65,536 on the sweep's
+first-tick inputs, then `python -m legged_mpc_control_tpu_torch.sweep` in
+two processes on the one card (Gloo) against the one-process metrics, and
+its weak-scaling report (efficiency >= 0.85). Exits non-zero on any
 failure and when no CUDA device is present. Diagnostics go to the earlier
 lines; the second-to-last line is a JSON object of the kernels, the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -53,8 +65,10 @@ import concurrent.futures
 import contextlib
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1725,13 +1739,13 @@ def single_gate(name):
 
 
 def submit_gates(pool):
-    """The gate runs of the last three phases, submitted together, a
-    process each (`pool` has eleven workers): the two wall leans first
+    """The gate runs of the last four phases, submitted together, a
+    process each (`pool` has fifteen workers): the two wall leans first
     (the longest), config 4's four, the twin's, the kf_type-2 loop's and
     the WBC stand's three, the LCI walk's and the single-robot CI walk's,
-    so that the long one-robot runs overlap config 4's; every timed run of
-    the three phases waits until all eleven have ended. Returns name ->
-    future."""
+    so that the long one-robot runs overlap config 4's, then the CLI's
+    four; every timed run of the four phases waits until all fifteen have
+    ended. Returns name -> future."""
     gates = {("lean", rb): pool.submit(lean_gate, rb) for rb in LEAN_ROBOTS}
     gates.update({("c4", n): pool.submit(c4_gate, n)
                   for n in ("platform", "stairs")})
@@ -1740,6 +1754,9 @@ def submit_gates(pool):
     gates.update({(n, None): pool.submit(fn) for n, fn in (
         ("wb", wb_gate), ("kf2", kf2_gate), ("wbc", wbc_gate),
         ("lci", lci_gate), ("ci1", ci1_gate))})
+    gates.update({("cli", mpc): pool.submit(cli_gate, mpc)
+                  for mpc in CLI_VELX})
+    gates["cli_profile", None] = pool.submit(cli_profile_gate)
     return gates
 
 
@@ -2881,6 +2898,423 @@ def phase_lci_pdip(dev, card, qps):
     return out
 
 
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+# BASELINE config 5 (SWEEP_r05.json's recipe): the 65,536-scenario Go1 trot
+# sweep, K1 + K2, as `python -m legged_mpc_control_tpu_torch.sweep` runs it;
+# two shards, so that one process holds the global batch that two
+# processes of one shard each hold
+C5_B, C5_TICKS, C5_STAND, C5_VELX, C5_ITERS, C5_H = 65536, 25, 20, 0.15, 15, 10
+C5_SHARDS = 2
+# the two-process metrics against the one-process run of the same batch:
+# the batches of the host's batched ops differ (32,768 against 65,536
+# rows), so their float32 roundings may, over 25 closed-loop ticks
+C5_METRIC_TOL = 1e-3
+C5_EFF_MIN = 0.85             # BASELINE.md: weak scaling at >= 2 processes
+# the report times max(2, ticks // 2) = 20 ticks a rep, 3 reps a phase
+C5_EFF_BATCH, C5_EFF_TICKS = 4096, 40
+C5_PROC_TIMEOUT = 300
+
+
+def c5_flags():
+    """The sweep CLI's flags of config 5 (its defaults, spelled out)."""
+    return ["--robot", "go1", "--solver", "riccati", "--horizon", str(C5_H),
+            "--iters", str(C5_ITERS), "--velx", str(C5_VELX),
+            "--stand-ticks", str(C5_STAND)]
+
+
+def c5_sweep(dev, mesh):
+    """Config 5's params and `distributed.make_sweep` on `mesh`."""
+    from legged_mpc_control_tpu_torch.config import go1_params
+    from legged_mpc_control_tpu_torch.mpc import gait
+    from legged_mpc_control_tpu_torch.parallel import distributed as dist
+
+    f32 = torch.float32
+    return go1_params(f32, dev), dist.make_sweep(
+        gait.trot_pattern(f32, dev), mesh, horizon=C5_H, n_ticks=C5_TICKS,
+        pdip_iters=C5_ITERS, solver="riccati", walk_velx=C5_VELX,
+        stand_ticks=C5_STAND)
+
+
+def print_metrics(label, m):
+    print(f"   {label}: " + ", ".join(f"{k} {v:.6f}" for k, v in m.items()),
+          flush=True)
+
+
+def c5_gate(label, m, walked):
+    check(m["upright_frac"] == 1.0, f"{label}: upright {m['upright_frac']}")
+    check(0.2 < m["mean_height"] < 0.4,
+          f"{label}: mean height {m['mean_height']}")
+    if walked:
+        check(m["mean_dx"] > 0.0, f"{label}: mean dx {m['mean_dx']}")
+
+
+def detached(args, kw):
+    """Copies of a kernel call's tensor arguments."""
+    def c(x):
+        return x.clone() if torch.is_tensor(x) else x
+    return tuple(c(a) for a in args), {k: c(v) for k, v in kw.items()}
+
+
+def phase_config5(dev, card):
+    """BASELINE config 5 in one process on the card, driven through
+    `parallel/distributed.make_sweep` as the sweep CLI drives it: run A,
+    two reps of C5_TICKS ticks (the stand phase consumed once) and a
+    sharded checkpoint; an uninterrupted third rep; run B, the checkpoint
+    loaded and C5_TICKS more ticks, which must equal the third rep bit for
+    bit (the same kernels at the same shapes). K1 and K2 once each a tick;
+    then both held against their plain versions at B=65,536 on the sweep's
+    own first-tick inputs, by the criteria of `phase_k1`'s loop call and
+    `chain_gate`. Returns run A's first-rep metrics (the two-process run's
+    reference) and the kernels' numbers at this batch."""
+    from legged_mpc_control_tpu_torch.mpc import riccati
+    from legged_mpc_control_tpu_torch.ops import riccati_kernel, substep_kernel
+    from legged_mpc_control_tpu_torch.parallel import distributed as dist
+    from legged_mpc_control_tpu_torch.parallel.mesh import ScenarioMesh
+    from legged_mpc_control_tpu_torch.tree import tree_map
+
+    t0 = phase(f"BASELINE config 5: the sweep, Go1, B={C5_B} ({C5_SHARDS} "
+               f"shards), trot at {C5_VELX} m/s after {C5_STAND} standing "
+               f"ticks, riccati iters {C5_ITERS}, H={C5_H}: run A "
+               f"({2} reps of {C5_TICKS} ticks, checkpoint), run B (resume, "
+               f"{C5_TICKS} ticks) against an uninterrupted third rep")
+    mesh = ScenarioMesh(1, 0, C5_SHARDS, dev)
+    params, sweep = c5_sweep(dev, mesh)
+    loop = dist.device_sharded_loop(params, C5_B, 0, mesh)
+    seen = {}
+    k1, k2 = (riccati_kernel.solve_qp_riccati_cuda,
+              substep_kernel.substep_chain_cuda)
+
+    def cap1(*a, **kw):
+        seen.setdefault("k1", detached(a, kw))
+        return k1(*a, **kw)
+
+    def cap2(*a, **kw):
+        seen.setdefault("k2", detached(a, kw))
+        return k2(*a, **kw)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, runs = [], []
+    with launch_counts() as launches_a, \
+            patched(riccati_kernel, solve_qp_riccati_cuda=cap1), \
+            patched(substep_kernel, substep_chain_cuda=cap2):
+        final = loop
+        for rep in range(2):
+            t1 = time.perf_counter()
+            final, m = sweep(final, params,
+                             stand_ticks_now=max(0, C5_STAND
+                                                 - rep * C5_TICKS))
+            sync(dev)
+            walls.append(time.perf_counter() - t1)
+            runs.append(m)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"riccati_ipm": 2 * C5_TICKS, "substep_chain": 2 * C5_TICKS}
+    print(f"   run A: kernel launches over {2 * C5_TICKS} ticks "
+          f"{launches_a}", flush=True)
+    check(launches_a == want, f"config 5 run A: launches {launches_a}, "
+          f"want {want}")
+    for rep, m in enumerate(runs):
+        print_metrics(f"run A rep {rep + 1}", m)
+        c5_gate(f"config 5 run A rep {rep + 1}", m, walked=True)
+    rate_a = C5_B * C5_TICKS / walls[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/c5"
+        t1 = time.perf_counter()
+        dist.save_sharded(path, final, step=2 * C5_TICKS, mesh=mesh)
+        t_save = time.perf_counter() - t1
+        size = os.path.getsize(f"{path}.p0")
+        third, m3 = sweep(final, params, stand_ticks_now=0)
+        del final
+        t1 = time.perf_counter()
+        loaded, step = dist.load_sharded(path, mesh)
+        sync(dev)
+        t_load = time.perf_counter() - t1
+    check(step == 2 * C5_TICKS, f"config 5: checkpoint step {step}")
+    with launch_counts() as launches_b:
+        t1 = time.perf_counter()
+        final_b, m_b = sweep(loaded, params,
+                             stand_ticks_now=max(0, C5_STAND - step))
+        sync(dev)
+        wall_b = time.perf_counter() - t1
+    del loaded
+    rate_b = C5_B * C5_TICKS / wall_b
+    print_metrics("run B (resumed)", m_b)
+    print(f"   run B: kernel launches over {C5_TICKS} ticks {launches_b}; "
+          f"checkpoint {size / 2 ** 20:.1f} MiB, saved in {t_save:.2f} s, "
+          f"loaded in {t_load:.2f} s", flush=True)
+    check(launches_b == {k: C5_TICKS for k in want},
+          f"config 5 run B: launches {launches_b}")
+    c5_gate("config 5 run B", m_b, walked=True)
+    check(m_b["mean_dx"] > runs[1]["mean_dx"] > runs[0]["mean_dx"],
+          "config 5: no forward progress across the reps")
+    diffs = []
+
+    def eq(a, b):
+        diffs.append(a.dtype == b.dtype and torch.equal(a, b))
+        return a
+    tree_map(eq, final_b, third)
+    print(f"   run B vs the uninterrupted third rep: {sum(diffs)} of "
+          f"{len(diffs)} leaves equal bit for bit; metrics equal "
+          f"{m_b == m3}", flush=True)
+    check(all(diffs) and m_b == m3,
+          "config 5: the resumed run differs from the uninterrupted rep")
+    del final_b, third
+    print(f"   config5_scenario_ticks_per_s = {rate_a:.1f} (run A, rep 2), "
+          f"{rate_b:.1f} (run B) ({card}; real-time bar {C5_B * 100}); "
+          f"peak device memory {peak / 2 ** 30:.2f} GiB "
+          "(torch.cuda.max_memory_allocated over run A)", flush=True)
+
+    # K1 and K2 at B=65,536 on the sweep's first-tick inputs
+    a, kw = seen["k1"]
+    print(f"   K1 at B={C5_B}: the first tick's call, iters "
+          f"{kw.get('iters')}, warm start "
+          f"{'zeros' if kw.get('warm_u') is not None else 'none'}",
+          flush=True)
+    uk, gk, _ = riccati_kernel.solve_qp_riccati_cuda(*a, **kw)
+    up, gp, _ = riccati.solve_qp_riccati_batched(*a, **kw)
+    a64, kw64 = (tuple(x.double() if torch.is_tensor(x)
+                       and x.is_floating_point() else x for x in a),
+                 {k: (v.double() if torch.is_tensor(v) else v)
+                  for k, v in kw.items()})
+    u64 = riccati.solve_qp_riccati_batched(*a64, **kw64)[0]
+    del a64, kw64
+    check(bool(torch.isfinite(uk).all()), "K1 B=65536: non-finite")
+    d = (uk - up).abs().amax(-1)
+    q99 = float(torch.quantile(d.double(), 0.99))
+    e64 = float((uk.double() - u64).abs().max())
+    p64 = float((up.double() - u64).abs().max())
+    gap, gap_p = float(gk.max()), float(gp.max())
+    fz = float(uk[:, 2:12:3].sum(-1).mean())
+    mass = float(params.mass)
+    print(f"   K1 B={C5_B}: max|u_kernel - u_plain| {float(d.max()):.3e} N "
+          f"(p99 {q99:.3e}); vs float64: kernel {e64:.3e} N, plain "
+          f"{p64:.3e} N; max gap kernel {gap:.3e}, plain {gap_p:.3e}; mean "
+          f"stance load {fz:.2f} N", flush=True)
+    check(q99 <= K1_BRACKET, f"K1 B=65536: p99 GRF difference {q99}")
+    check(e64 <= 1.5 * p64 + K1_BRACKET,
+          f"K1 B=65536: {e64} N from float64, plain {p64} N")
+    check(gap < max(1e-4, 2.0 * gap_p), f"K1 B=65536: gap {gap}")
+    check(0.3 * 9.8 * mass < fz < 2.0 * 9.8 * mass,
+          f"K1 B=65536: implausible stance load {fz}")
+    k1_err = float(d.max())
+    del uk, up, u64
+    k1_ms = cuda_ms(lambda: riccati_kernel.solve_qp_riccati_cuda(*a, **kw),
+                    reps=5)
+    H, iters = a[1].shape[1], kw["iters"]
+    k1_bound = bound(C5_B * 4 * (NX_IN_K1(H) + NX_OUT_K1(H) + 12 * H),
+                     C5_B * H * iters * K1_FLOP_PER_STAGE_ITER)
+    del a, kw
+    a, kw = seen.pop("k2")
+    k2_err = chain_gate(f"K2 B={C5_B}",
+                        substep_kernel.substep_chain_cuda(*a, **kw),
+                        substep_kernel.substep_chain_plain(*a, **kw))
+    k2_ms = cuda_ms(lambda: substep_kernel.substep_chain_cuda(*a, **kw),
+                    reps=10)
+    k2_bound = bound(
+        C5_B * 4 * (substep_kernel.N_IN + 1 + substep_kernel.N_OUT),
+        C5_B * (8 * K2_FLOP_PER_SUBSTEP + K2_FLOP_TAIL))
+    print(f"   time at B={C5_B} ({card}): K1 {k1_ms:.3f} ms (iters "
+          f"{iters}, bound {k1_bound[0]:.3g} ms, {k1_bound[1]}), K2 "
+          f"{k2_ms:.4f} ms (bound {k2_bound[0]:.3g} ms, {k2_bound[1]})",
+          flush=True)
+    seen.clear()
+    done(t0)
+    return runs[0], dict(k1_ms=k1_ms, k1_err=k1_err, k2_ms=k2_ms,
+                         k2_err=k2_err, k1_bound=k1_bound, k2_bound=k2_bound,
+                         launches=want, rate_a=rate_a, rate_b=rate_b,
+                         peak=peak)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sweep_procs(argv, n=2):
+    """`python -m legged_mpc_control_tpu_torch.sweep argv` in `n`
+    processes on the one card, under torchrun's variables (Gloo on
+    127.0.0.1); returns each rank's metrics record and rank 0's output."""
+    port = str(free_port())
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "legged_mpc_control_tpu_torch.sweep",
+             *argv, "--metrics", f"{tmp}/m"],
+            env={**os.environ, "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": port, "WORLD_SIZE": str(n), "RANK": str(r),
+                 "LOCAL_RANK": str(r),
+                 # the host's cores shared out, as torchrun does
+                 "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1) // n))},
+            cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+            for r in range(n)]
+        try:
+            outs = [p.communicate(timeout=C5_PROC_TIMEOUT)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"sweep rank {r} exited "
+                  f"{p.returncode}:\n{out[-3000:]}")
+        recs = []
+        for r in range(n):
+            with open(f"{tmp}/m.p{r}.json") as fh:
+                recs.append(json.load(fh))
+    return recs, outs[0]
+
+
+def phase_config5_procs(dev, card, one):
+    """Config 5 across two processes on the one card, through the sweep
+    CLI: 2 x 32,768 scenarios (one shard each; the global batch of
+    `phase_config5`'s two shards), C5_TICKS ticks: the metrics equal on
+    both ranks, and within C5_METRIC_TOL of run A's first rep. Then the
+    weak-scaling report at C5_EFF_BATCH scenarios a process, efficiency
+    >= C5_EFF_MIN."""
+    t0 = phase(f"config 5 across two processes on the one card (Gloo): "
+               f"2 x {C5_B // 2} scenarios, {C5_TICKS} ticks; then the "
+               f"weak-scaling report at {C5_EFF_BATCH} a process")
+    recs, out = sweep_procs(["--scenarios", str(C5_B), "--ticks",
+                             str(C5_TICKS), *c5_flags()])
+    print("   rank 0: " + out.strip().splitlines()[-1], flush=True)
+    m0, m1 = recs[0]["metrics"], recs[1]["metrics"]
+    print_metrics("rank 0", m0)
+    check(m0 == m1, f"config 5, two processes: the ranks' metrics differ: "
+          f"{m0} vs {m1}")
+    c5_gate("config 5, two processes", m0, walked=True)
+    worst = max(abs(m0[k] - one[k]) for k in one)
+    print(f"   largest difference from the one-process run of the same "
+          f"global batch: {worst:.3e} (tolerance {C5_METRIC_TOL})",
+          flush=True)
+    check(worst <= C5_METRIC_TOL, f"config 5: two processes differ from "
+          f"one by {worst}")
+    rate2 = C5_B * C5_TICKS / max(r["wall_s"] for r in recs)
+    recs, out = sweep_procs(["--scenarios", str(2 * C5_EFF_BATCH),
+                             "--ticks", str(C5_EFF_TICKS), *c5_flags(),
+                             "--report-efficiency", "--per-device-batch",
+                             str(C5_EFF_BATCH)])
+    rep = recs[0]["report"]
+    print(f"   weak scaling ({card}): {json.dumps(rep)}", flush=True)
+    check(rep == recs[1]["report"], "weak-scaling reports differ")
+    eff = rep["weak_scaling_efficiency"]
+    check(eff >= C5_EFF_MIN, f"weak-scaling efficiency {eff} < "
+          f"{C5_EFF_MIN}")
+    print(f"   config5_two_process_scenario_ticks_per_s = {rate2:.1f}; "
+          f"weak_scaling_efficiency_2proc = {eff:.4f} ({card})",
+          flush=True)
+    done(t0)
+    return dict(rate2=rate2, eff=eff)
+
+
+# the CLI's three MPC paths (`main.main` in a worker process): A1, 0.5 s,
+# velx 0.25 (0.1 for ci); walk from tick min(20, ticks // 4)
+CLI_SECONDS, CLI_TICKS = 0.5, 50
+CLI_WALK_FROM = min(20, CLI_TICKS // 4)
+CLI_VELX = {"convex": 0.25, "lci": 0.25, "ci": 0.1}
+
+
+def cli_launches(mpc):
+    """The launches a CLI run of CLI_TICKS ticks must make, every tick, the
+    standing ones too (the LCI seam evaluates its walk policy every tick
+    and picks by mode): the condensed PDIP 15 (K4 15, K5 30); the LCI
+    walk's PDIP 12 at n=96 (K4 12, K5 24); K7 once."""
+    per_tick = {"convex": {"chol_factor": 15, "chol_solve": 30},
+                "lci": LCI_LAUNCHES, "ci": {"ci_sweeps": 1}}[mpc]
+    return {k: v * CLI_TICKS for k, v in per_tick.items()}
+
+
+def cli_gate(mpc, dev_type="cuda"):
+    """`main.main` for `--mpc mpc` with `--bag`, in a process of its own:
+    its exit code, summary, launches and the bag read back."""
+    import io
+
+    from legged_mpc_control_tpu_torch import main as cli
+    from legged_mpc_control_tpu_torch.ops import cuda_build
+    from legged_mpc_control_tpu_torch.utils import bag
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--robot", "a1", "--mpc", mpc, "--seconds", str(CLI_SECONDS),
+                "--velx", str(CLI_VELX[mpc]), "--bag", f"{tmp}/run.npz"]
+        if dev_type == "cpu":
+            argv.append("--cpu")
+        buf = io.StringIO()
+        cuda_build.LAUNCHES.clear()
+        with contextlib.redirect_stdout(buf):
+            code = cli.main(argv)
+        launches = dict(cuda_build.LAUNCHES)
+        data, meta = bag.load_bag(f"{tmp}/run.npz")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    return dict(code=code, summary=summary, launches=launches,
+                bag_ticks=int(data["root_pos"].shape[0]),
+                bag_mpc=meta["args"]["mpc"],
+                tick_ms=float(np.median(data["tick_wall_ms"][-20:])))
+
+
+def cli_profile_gate(dev_type="cuda"):
+    """The CLI with `--profile` over 2 ticks, and `python -m
+    legged_mpc_control_tpu_torch --seconds 0.3` as a real subprocess, in a
+    process of their own."""
+    from legged_mpc_control_tpu_torch import main as cli
+
+    extra = ["--cpu"] if dev_type == "cpu" else []
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(sys.stderr):
+        code = cli.main(["--seconds", "0.02", "--profile", tmp, *extra])
+        trace = os.path.join(tmp, "trace.json")
+        size = os.path.getsize(trace) if os.path.exists(trace) else 0
+        with open(trace) as fh:
+            events = len(json.load(fh)["traceEvents"])
+    out = subprocess.run([sys.executable, "-m",
+                          "legged_mpc_control_tpu_torch", "--seconds", "0.3",
+                          *extra], cwd=REPO_DIR, capture_output=True,
+                         text=True, timeout=300)
+    return dict(code=code, trace_bytes=size, events=events,
+                sub_code=out.returncode, sub_out=out.stdout[-2000:],
+                sub_err=out.stderr[-2000:])
+
+
+def phase_cli(dev, card, gates):
+    """The CLI (`python -m legged_mpc_control_tpu_torch`) on the card: its
+    three `--mpc` paths, each `main.main` in a process of its own beside the
+    other gate runs (`submit_gates`): exit 0, upright, the kernels' launches
+    a tick, the bag read back; then a 2-tick run with `--profile` and one
+    real subprocess run. Returns the launches a tick of each path."""
+    t0 = phase(f"the CLI: --mpc convex, lci, ci (A1, {CLI_SECONDS} s, "
+               f"walking from tick {CLI_WALK_FROM}), --profile, and one "
+               "subprocess run: four processes beside the gate runs")
+    per_tick = {}
+    for mpc in CLI_VELX:
+        r = gates["cli", mpc].result()
+        print(f"   --mpc {mpc}: exit {r['code']}, launches {r['launches']}, "
+              f"summary {json.dumps(r['summary'])}; bag {r['bag_ticks']} "
+              f"ticks; median tick {r['tick_ms']:.1f} ms (beside the gate "
+              f"processes; {card})", flush=True)
+        check(r["code"] == 0 and r["summary"]["upright"],
+              f"CLI --mpc {mpc}: exit {r['code']}")
+        want = cli_launches(mpc)
+        check(r["launches"] == want,
+              f"CLI --mpc {mpc}: launches {r['launches']}, want {want}")
+        check(r["bag_ticks"] == CLI_TICKS and r["bag_mpc"] == mpc,
+              f"CLI --mpc {mpc}: the bag did not load back")
+        per_tick[mpc] = {k: v // CLI_TICKS for k, v in r["launches"].items()}
+    r = gates["cli_profile", None].result()
+    print(f"   --profile: exit {r['code']}, trace {r['trace_bytes']} bytes, "
+          f"{r['events']} events; subprocess run: exit {r['sub_code']}, "
+          f"{r['sub_out'].strip().splitlines()[-1] if r['sub_out'] else ''}",
+          flush=True)
+    check(r["code"] == 0 and r["events"] > 0, "CLI --profile: no trace")
+    check(r["sub_code"] == 0, f"CLI subprocess exited {r['sub_code']}: "
+          f"{r['sub_err']}")
+    summary = json.loads(r["sub_out"].strip().splitlines()[-1])
+    check(summary["upright"] and summary["final_height_m"] > 0.25,
+          f"CLI subprocess: {summary}")
+    done(t0)
+    return per_tick
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device available")
@@ -2903,15 +3337,21 @@ def main():
     terrain_launches, _, terrain_state = phase_ci_terrain(dev, card)
     k6 = phase_k6(dev, card, terrain_state)
     with concurrent.futures.ProcessPoolExecutor(
-            11, mp_context=multiprocessing.get_context("spawn")) as pool:
+            15, mp_context=multiprocessing.get_context("spawn")) as pool:
         _, gates = phase_config4(dev, card, pool)
         phase_wb(dev, card, gates)
         lean_systems, lci_qps, per_tick = phase_lci(dev, card, gates)
+        cli_per_tick = phase_cli(dev, card, gates)
     config4_timed(dev, card)
     wb_k45, _, _ = phase_wb_timed(dev, card)
     phase_lci_timed(dev, card)
     wall = phase_wall_k46(dev, card, lean_systems)
     n96 = phase_lci_pdip(dev, card, lci_qps)
+    t_c5 = time.perf_counter()
+    c5_one, c5 = phase_config5(dev, card)
+    phase_config5_procs(dev, card, c5_one)
+    print(f"== config 5's phases took {time.perf_counter() - t_c5:.1f} s",
+          flush=True)
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
     # the main path's shape, B=4096 and n=120, on the early matrices: the
@@ -2969,6 +3409,17 @@ def main():
     rows["chol_factor"]["ms_n96_b1"] = n96["ms4"]
     rows["chol_solve"]["ms_n96_b1"] = n96["ms5"]
     rows["ci_sweeps"]["ms_b1"] = k7["ms1"]
+    # config 5 (B=65,536): launches a tick, time, error and bound; the
+    # CLI's paths: launches a tick
+    for name, k in (("riccati_ipm", "k1"), ("substep_chain", "k2")):
+        r = rows[name]
+        r["launches_sweep_per_tick"] = c5["launches"][name] // (2 * C5_TICKS)
+        r["ms_b65536"] = c5[k + "_ms"]
+        r["max_abs_err_b65536"] = c5[k + "_err"]
+        r["bound_ms_b65536"] = c5[k + "_bound"][0]
+    for mpc, counts in cli_per_tick.items():
+        for name, n in counts.items():
+            rows[name]["launches_cli_" + mpc] = n
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,10 @@ kernel on flat ground (`ops/ci_kernel.py`, `csrc/ci_sweeps.cu`) and its
 gain solves on the Cholesky kernels on a height field (`sim/terrain.py`).
 CUDA tensors run the kernels, CPU tensors their plain PyTorch versions.
 Entry points that build state from nothing default to the card; pass
-`device="cpu"` to build on the CPU.
+`device="cpu"` to build on the CPU. The sweep across processes
+(`sweep.py` over `parallel/distributed.py`, Gloo) and the CLI
+(`python -m legged_mpc_control_tpu_torch`, `main.py`, with the robot
+interfaces of `interfaces/`) run on the card unless given `--cpu`.
 """
 
 __version__ = "0.3.0"

@@ -54,8 +54,8 @@ def make_batched_rollout(pattern: gait_mod.GaitPattern, *, horizon=10,
                          pdip_iters=12, kf_type=0, walk_velx=0.0,
                          solver="riccati", low_level_type=0, stand_ticks=0,
                          fused_substeps=True):
-    """Returns rollout(loop_batch, params) -> (final, (pos, vel)), with pos
-    and vel the (T, B, 3) trunk trajectories.
+    """Returns rollout(loop_batch, params, stand_ticks_arg=None) -> (final,
+    (pos, vel)), with pos and vel the (T, B, 3) trunk trajectories.
 
     Every tick solves the whole batch's QPs in one solver call with the
     previous tick's warm state carried across (reference:
@@ -63,7 +63,10 @@ def make_batched_rollout(pattern: gait_mod.GaitPattern, *, horizon=10,
     "pdip" (tick 0 warm-starts from zeros), the ADMM warm tuple for
     "admm". `pdip_iters` is the iteration count of either solver. With a
     nonzero `walk_velx` the batch stands `stand_ticks` ticks, then trots at
-    that forward speed. fused_substeps: the substep chain in one call
+    that forward speed; a call's `stand_ticks_arg` overrides
+    `stand_ticks` (None keeps it): a resumed sweep, or its second rep,
+    passes the stand ticks it has left, so that it does not stand again.
+    fused_substeps: the substep chain in one call
     (kernel K2, or K3 under kf_type 1, on CUDA) with the Feedback carried
     in its `fb` block; False runs the per-substep loop with a feedback pass
     every tick, as kf_type 2 and low_level_type 1 always do."""
@@ -72,7 +75,7 @@ def make_batched_rollout(pattern: gait_mod.GaitPattern, *, horizon=10,
     convex_mpc.check_solver(solver)
     fused = fused_substeps and step_mod._fused_ok(kf_type, low_level_type)
 
-    def rollout(loop, params):
+    def rollout(loop, params, stand_ticks_arg=None):
         batch = loop.sim.pos.shape[0]
         params_b = step_mod.broadcast_params(params, batch)
         if fused:
@@ -85,9 +88,10 @@ def make_batched_rollout(pattern: gait_mod.GaitPattern, *, horizon=10,
                 kf_type=kf_type, iters=pdip_iters, solver=solver,
                 low_level_type=low_level_type, warm=warm,
                 fused_substeps=fused, carry_feedback=fused)
-        loop, (pos, vel) = _roll(loop, loop.sim.pos, tick, horizon, solver,
-                                 n_ticks, walk_velx, stand_ticks,
-                                 lambda s: (s.pos, s.vel))
+        loop, (pos, vel) = _roll(
+            loop, loop.sim.pos, tick, horizon, solver, n_ticks, walk_velx,
+            stand_ticks if stand_ticks_arg is None else stand_ticks_arg,
+            lambda s: (s.pos, s.vel))
         return loop, (pos, vel)
 
     return rollout
@@ -127,16 +131,17 @@ def make_batched_rollout_wb(pattern: gait_mod.GaitPattern, model, *,
                             low_level_type=0, n_inner=4, stand_ticks=20,
                             terrain=None):
     """`make_batched_rollout` against the articulated twin (the
-    Gazebo-fidelity twin as a sweep backend): rollout(loop_batch, params)
-    -> (final, (pos, vel)) with `loop.sim` a batched `wb_sim.WbSimState`
-    (`init_wb_loop_batch`) and `model` its `models.whole_body.WbModel`.
+    Gazebo-fidelity twin as a sweep backend): rollout(loop_batch, params,
+    stand_ticks_arg=None) -> (final, (pos, vel)) with `loop.sim` a batched
+    `wb_sim.WbSimState` (`init_wb_loop_batch`) and `model` its
+    `models.whole_body.WbModel`.
     Every tick is `step.closed_loop_tick_wb_batched` (K1 under "riccati",
     K4 + K5 in every inner sim step, on CUDA tensors)."""
     step_mod._check_kf_type(kf_type)
     step_mod._check_low_level_type(low_level_type)
     convex_mpc.check_solver(solver)
 
-    def rollout(loop, params):
+    def rollout(loop, params, stand_ticks_arg=None):
         params_b = step_mod.broadcast_params(params, loop.sim.q.shape[0])
 
         def tick(loop, warm):
@@ -146,7 +151,9 @@ def make_batched_rollout_wb(pattern: gait_mod.GaitPattern, model, *,
                 solver=solver, low_level_type=low_level_type,
                 n_inner=n_inner, terrain=terrain, warm=warm)
         return _roll(loop, loop.sim.q, tick, horizon, solver, n_ticks,
-                     walk_velx, stand_ticks,
+                     walk_velx,
+                     stand_ticks if stand_ticks_arg is None
+                     else stand_ticks_arg,
                      lambda s: (s.q[:, 0:3], s.v[:, 0:3]))
 
     return rollout

@@ -34,8 +34,9 @@ from legged_mpc_control_tpu_torch.ops import (
     riccati_kernel,
     substep_kernel,
 )
+from legged_mpc_control_tpu_torch.interfaces.sim_iface import SimInterface
 from legged_mpc_control_tpu_torch.models import whole_body as wb
-from legged_mpc_control_tpu_torch.parallel import runner
+from legged_mpc_control_tpu_torch.parallel import distributed, runner
 from legged_mpc_control_tpu_torch.sim import srb_sim, terrain, wb_sim
 from legged_mpc_control_tpu_torch.tree import to_numpy, tree_map
 from legged_mpc_control_tpu_torch.types import (
@@ -75,7 +76,12 @@ def test_port_imports_no_jax():
     for name in ("mpc.ci_mpc", "mpc.lci_mpc", "ops.ci_kernel", "sim.terrain",
                  "estimation.ekf", "models.whole_body", "models.whole_body_b",
                  "sim.wb_sim", "control.hoqp", "control.wbc",
-                 "models.ik_dls"):
+                 "models.ik_dls", "parallel.mesh", "parallel.distributed",
+                 "sweep", "utils.checkpoint", "utils.bag", "utils.tuning",
+                 "main", "__main__", "native", "interfaces",
+                 "interfaces.base", "interfaces.sim_iface",
+                 "interfaces.hardware", "interfaces.highlevel",
+                 "interfaces.joystick", "interfaces.mocap"):
         assert f"{pkg.__name__}.{name}" in MODULES, name
 
 
@@ -313,6 +319,9 @@ ENTRY_POINTS = {
     "init_wb_loop_batch": lambda: runner.init_wb_loop_batch(
         a1_params(device=CPU), wb.a1_wb_model(device=CPU), 2,
         torch.Generator()),
+    "device_sharded_loop": lambda: distributed.device_sharded_loop(
+        a1_params(device=CPU), 2),
+    "SimInterface": lambda: SimInterface(a1_params(device=CPU)).loop,
 }
 
 
