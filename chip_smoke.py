@@ -48,7 +48,14 @@ the LCI walk's own QPs against plain and float64. The CLI
 `--mpc` paths in three more processes beside those gate runs (convex: K4 +
 K5 at B=1, 15 and 30 a tick; lci: K4 12 and K5 24 a walking tick at
 n=96; ci: K7 once a walking tick), with `--bag` read back, and a fourth
-process runs it with `--profile` and once as a real subprocess. Last,
+process runs it with `--profile` and once as a real subprocess. The batched
+CI closed loop on estimated state and with the WBC runs in four more
+(`closed_loop_tick_lci_batched`, A1, 20 standing ticks while a filter
+settles, then walking): kf_type 1 and 2 at B=256 (the per-substep loop, K7
+once a tick), low_level_type 1 at B=32 (the WBC), and kf_type 0 with
+`fused_substeps=False` at B=32 beside the fused run (K7 + K2) from the
+same start, held to the JAX package's upright share and bench.py's
+estimator and fused-vs-unfused rules. Last,
 BASELINE config 5, the 65,536-scenario Go1 sweep (`parallel/
 distributed.make_sweep`, K1 + K2 once a tick): two reps and a sharded
 checkpoint, a resumed run that must equal an uninterrupted rep bit for
@@ -554,15 +561,18 @@ def phase_k2(dev, card):
     plain_ms = cuda_ms(lambda: substep_kernel.substep_chain_plain(*args, **kw),
                        reps=3)
     ms256 = chain_b256("K2", args, kw)
-    b_ms, b_by = bound(
-        B * 4 * (substep_kernel.N_IN + 1 + substep_kernel.N_OUT),
-        B * (8 * K2_FLOP_PER_SUBSTEP + K2_FLOP_TAIL))
+
+    def k2_bound(b):
+        return bound(b * 4 * (substep_kernel.N_IN + 1 + substep_kernel.N_OUT),
+                     b * (8 * K2_FLOP_PER_SUBSTEP + K2_FLOP_TAIL))
+    (b_ms, b_by), (b256, b256_by) = k2_bound(B), k2_bound(256)
     print(f"   time ({card}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
           f"per 8-substep chain; bound {b_ms:.3g} ms ({b_by}); kernel "
-          f"{ms256:.4f} ms at B=256", flush=True)
+          f"{ms256:.4f} ms at B=256, bound {b256:.3g} ms ({b256_by})",
+          flush=True)
     done(t0)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, ms_b256=ms256, bound_ms_b256=b256)
 
 
 def phase_main(dev, card):
@@ -731,15 +741,19 @@ def phase_k3(dev, card):
                        reps=3)
     ms256 = chain_b256("K3", args, kw)
     n_kf = substep_kernel.N_KF
-    b_ms, b_by = bound(
-        B * 4 * (substep_kernel.N_IN + n_kf + 1 + substep_kernel.N_OUT + n_kf),
-        B * (8 * K3_FLOP_PER_SUBSTEP + K2_FLOP_TAIL))
+
+    def k3_bound(b):
+        return bound(b * 4 * (substep_kernel.N_IN + n_kf + 1
+                              + substep_kernel.N_OUT + n_kf),
+                     b * (8 * K3_FLOP_PER_SUBSTEP + K2_FLOP_TAIL))
+    (b_ms, b_by), (b256, b256_by) = k3_bound(B), k3_bound(256)
     print(f"   time ({card}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
           f"per 8-substep chain; bound {b_ms:.3g} ms ({b_by}); kernel "
-          f"{ms256:.4f} ms at B=256", flush=True)
+          f"{ms256:.4f} ms at B=256, bound {b256:.3g} ms ({b256_by})",
+          flush=True)
     done(t0)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, ms_b256=ms256, bound_ms_b256=b256)
 
 
 def newton_matrices(batch, horizon, dev, iteration, iters=15):
@@ -1286,15 +1300,16 @@ def set_mode(loop, mode):
                                  device=loop.sim.pos.device))))
 
 
-def ci_roll(st, n, t0=0.0):
-    """n closed-loop CI ticks of the state dict `st`, in place."""
+def ci_roll(st, n, t0=0.0, k0=0, **kw):
+    """n closed-loop CI ticks of the state dict `st`, in place, the clock at
+    t0 + 0.01 (k0 + k) on tick k; `kw` goes to the tick."""
     from legged_mpc_control_tpu_torch.control import step
 
     loop, lci = st["loop"], st["lci"]
     for k in range(n):
         loop, lci = step.closed_loop_tick_lci_batched(
             loop, lci, st["params"], st["stand"], st["walk"],
-            t0 + 0.01 * k, terrain=st["terrain"])
+            t0 + 0.01 * (k0 + k), terrain=st["terrain"], **kw)
     st["loop"], st["lci"] = loop, lci
     return st
 
@@ -1358,11 +1373,15 @@ def k7_errors(a, b):
             "foot_vel": per_scenario(Ua[..., 12:], Ub[..., 12:])}
 
 
-def k7_gate(got, a, kw, label):
+def k7_gate(got, a, kw, label, bracket=True):
     """K7's result `got` on the arguments (a, kw) against the plain version
     in float32 (K7_TOL for K7_SHARE of the scenarios) and float64 (the
-    kernel's p99 error no more than 1.5x plain's + the tolerance). Returns
-    the kernel's largest Z error against plain float32."""
+    kernel's p99 error no more than 1.5x plain's + the tolerance). With
+    bracket=False, for a solve whose optimum is flat (two line-search
+    candidates may cost the same to a float32 rounding, and then rounding
+    picks the trajectory), only the cost is held: every scenario's within
+    K7_TOL["cost"] of the float64 solve's. Returns the kernel's largest Z
+    error against plain float32."""
     from legged_mpc_control_tpu_torch.ops import ci_kernel
 
     n = a[0].shape[0]
@@ -1383,13 +1402,18 @@ def k7_gate(got, a, kw, label):
               f"{float(e[name].max()):.3e}, p99 "
               f"{float(torch.quantile(e[name], 0.99)):.3e} (tol {tol}); vs "
               f"float64 p99: kernel {k99:.3e}, plain {q99:.3e}", flush=True)
-        check(k99 <= 1.5 * q99 + tol,
+        check(not bracket or k99 <= 1.5 * q99 + tol,
               f"K7 {label} {name}: p99 {k99} from float64, plain {q99}")
     n_out = int(outside.sum())
     print(f"   {label}: scenarios outside the bracket: {n_out} of {n}",
           flush=True)
-    check(n_out <= (1.0 - K7_SHARE) * n,
-          f"K7 {label}: {n_out} of {n} scenarios outside the bracket")
+    if bracket:
+        check(n_out <= (1.0 - K7_SHARE) * n,
+              f"K7 {label}: {n_out} of {n} scenarios outside the bracket")
+    else:
+        worst = float(e64["cost"].max())
+        check(worst <= K7_TOL["cost"],
+              f"K7 {label}: cost {worst} from float64's")
     return float(e["Z"].max())
 
 
@@ -1419,18 +1443,22 @@ def phase_k7(dev, card, st):
                    "B=1, 32 sweeps")
     ms = cuda_ms(lambda: ci_kernel.ci_sweeps_cuda(*a, **kw), reps=5)
     plain_ms = cuda_ms(lambda: ci_kernel.ci_sweeps_plain(*a, **kw), reps=1)
-    H, iters = a[1].shape[1], kw["iters"]
+    H = a[1].shape[1]
     floats = (24 + 24 * H + 48 * H + 24 + 4 * H + 1 + 9 + 24 * H
               + 24 * (H + 1) + 1)
-    b_ms, b_by = bound(CI_B * floats * 4 + 54 * 4,
-                       CI_B * iters * H * K7_FLOP_PER_STAGE_SWEEP)
+
+    def k7_bound(b, iters):
+        return bound(b * floats * 4 + 54 * 4,
+                     b * iters * H * K7_FLOP_PER_STAGE_SWEEP)
+    (b_ms, b_by), (b1, b1_by) = k7_bound(CI_B, kw["iters"]), k7_bound(1, 32)
     ms1 = cuda_ms(lambda: ci_kernel.ci_sweeps_cuda(*one, **kw1), reps=5)
     print(f"   time ({card}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
           f"per 24-sweep solve; bound {b_ms:.3g} ms ({b_by}); kernel at "
-          f"B=1, 32 sweeps {ms1:.3f} ms", flush=True)
+          f"B=1, 32 sweeps {ms1:.3f} ms, bound {b1:.3g} ms ({b1_by})",
+          flush=True)
     done(t0)
     return dict(err=max(err, err1), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, ms1=ms1)
+                bound_by=b_by, ms1=ms1, bound_ms_b1=b1)
 
 
 def phase_ci_latency(dev, card):
@@ -1738,14 +1766,18 @@ def single_gate(name):
         launches=dict(launches))
 
 
+POOL_WORKERS = 19
+
+
 def submit_gates(pool):
-    """The gate runs of the last four phases, submitted together, a
-    process each (`pool` has fifteen workers): the two wall leans first
-    (the longest), config 4's four, the twin's, the kf_type-2 loop's and
-    the WBC stand's three, the LCI walk's and the single-robot CI walk's,
-    so that the long one-robot runs overlap config 4's, then the CLI's
-    four; every timed run of the four phases waits until all fifteen have
-    ended. Returns name -> future."""
+    """The gate runs of the last five phases, submitted together, a
+    process each (`pool` has POOL_WORKERS workers): the two wall leans
+    first (the longest), config 4's four, the twin's, the kf_type-2 loop's
+    and the WBC stand's three, the LCI walk's and the single-robot CI
+    walk's, so that the long one-robot runs overlap config 4's, the four
+    of the CI loop on estimated state, then the CLI's four; every timed
+    run of the five phases waits until all nineteen have ended. Returns
+    name -> future."""
     gates = {("lean", rb): pool.submit(lean_gate, rb) for rb in LEAN_ROBOTS}
     gates.update({("c4", n): pool.submit(c4_gate, n)
                   for n in ("platform", "stairs")})
@@ -1754,6 +1786,8 @@ def submit_gates(pool):
     gates.update({(n, None): pool.submit(fn) for n, fn in (
         ("wb", wb_gate), ("kf2", kf2_gate), ("wbc", wbc_gate),
         ("lci", lci_gate), ("ci1", ci1_gate))})
+    gates.update({("ci_est", name): pool.submit(ci_est_gate, name)
+                  for name in CIE_VARIANTS})
     gates.update({("cli", mpc): pool.submit(cli_gate, mpc)
                   for mpc in CLI_VELX})
     gates["cli_profile", None] = pool.submit(cli_profile_gate)
@@ -2898,6 +2932,281 @@ def phase_lci_pdip(dev, card, qps):
     return out
 
 
+# ---- the CI closed loop on estimated state and with the WBC (A1, flat) ----
+
+# tools/ci_estimated_census.py's recipe: chip_smoke's CI batch (`ci_setup`,
+# velx 0.1, 24 warm sweeps) standing CIE_STAND ticks on the stand policy
+# while a filter settles, then walking. (Walking from the first tick, the
+# JAX package loses most scenarios on either filter: ROADMAP fault 15.)
+# name -> (tick keywords, batch, walking ticks, of them timed)
+CIE_STAND = 20
+CIE_VARIANTS = {"kf1": (dict(kf_type=1), 256, 40, 10),
+                "kf2": (dict(kf_type=2), 256, 40, 10),
+                "wbc": (dict(low_level_type=1), 32, 10, 10),
+                "unfused": (dict(fused_substeps=False), 32, 40, 0)}
+CIE_SEED = 11
+CIE_UPRIGHT = (0.15, 0.5)       # m, the trunk height of an upright robot
+# the least share of scenarios finite and upright at the end:
+# the JAX package's own share over the census recipe (B=32, float32 and
+# float64)
+CIE_MIN_SHARE = {"kf1": 1.0, "kf2": 1.0, "wbc": 0.0, "unfused": 1.0}
+# the WBC variant never stands on the SRB sim in either package (ROADMAP
+# fault 15): its mean trunk height lost over the run, and the band around
+# the JAX package's that holds the port to it
+CIE_WBC_SINK = (0.442, 0.02)
+# bench.py:221-222, the filters' mean z error and xy drift over the upright
+# scenarios; bench.py:128-132, the unfused loop against the fused one:
+# mean position deviation and the shift of the mean height
+CIE_EST_Z, CIE_EST_XY = 0.025, 0.04
+CIE_DEV, CIE_DZ = 2e-3, 1e-3
+# the runs at B=32 whose K7 call on the first walking tick is held to the
+# plain version (k7_gate), and whether to its bracket (K7_TOL for K7_SHARE
+# of the scenarios). The WBC run's robots have sunk 0.2 m into the ground
+# by then: the optimum is flat, and in one scenario of 32 the two best
+# line-search candidates cost the same to one float32 rounding (ROADMAP
+# fault 17), so there only the cost is held
+CIE_K7_CHECKED = {"unfused": True, "wbc": False}
+# the WBC's feed-forward torques (N m) and forces (N) on the card against
+# the CPU's on the same inputs: both solve the hierarchy in float64, so
+# they differ by the order of float64 roundings only
+CIE_WBC_TAU_TOL, CIE_WBC_F_TOL = 1e-6, 1e-5
+
+
+def upright(pos):
+    """(B,) whether each trunk height of pos (B,3) is an upright robot's."""
+    z = torch.nan_to_num(pos[:, 2])
+    return (z > CIE_UPRIGHT[0]) & (z < CIE_UPRIGHT[1])
+
+
+def ci_est_run(dev, kw, batch, n_walk, n_timed):
+    """One CI batch (`ci_setup`) through `closed_loop_tick_lci_batched`
+    with the tick keywords `kw`: CIE_STAND standing ticks, then n_walk
+    walking ticks, the last n_timed of them timed. Returns (final loop,
+    start positions, the launches of the whole run, the timed seconds,
+    seen): seen["k7"] holds K7's arguments on the first walking tick,
+    seen["wbc"] the WBC's first inputs after the first tick (with
+    low_level_type 1), both as CPU copies."""
+    from legged_mpc_control_tpu_torch.control import wbc
+    from legged_mpc_control_tpu_torch.ops import ci_kernel
+
+    st = ci_setup(dev, batch, 24, seed=CIE_SEED, mode=0)
+    pos0 = st["loop"].sim.pos.clone()
+    seen = {}
+    k7, wbc_fn = ci_kernel.ci_sweeps_cuda, wbc.wbc_from_controller
+
+    def cap_k7(*a, **k):
+        seen.setdefault("k7", (to_device(a, "cpu"), to_device(k, "cpu")))
+        return k7(*a, **k)
+
+    def cap_wbc(fbk, ctrl, model, **k):
+        seen.setdefault("wbc", tuple(
+            {f: getattr(o, f).cpu() for f in fields} for o, fields in
+            ((fbk, wbc._FBK_READ), (ctrl, wbc._CTRL_READ))))
+        return wbc_fn(fbk, ctrl, model, **k)
+    sync(dev)
+    with launch_counts() as launches:
+        ci_roll(st, 1, **kw)
+        with patched(wbc, wbc_from_controller=cap_wbc):
+            ci_roll(st, CIE_STAND - 1, k0=1, **kw)
+        st["loop"] = set_mode(st["loop"], 1)
+        with patched(ci_kernel, ci_sweeps_cuda=cap_k7):
+            ci_roll(st, n_walk - n_timed, k0=CIE_STAND, **kw)
+            sync(dev)
+            t1 = time.perf_counter()
+            ci_roll(st, n_timed, k0=CIE_STAND + n_walk - n_timed, **kw)
+            sync(dev)
+            elapsed = time.perf_counter() - t1
+    return st["loop"], pos0, dict(launches), elapsed, seen
+
+
+def to_device(x, dev):
+    """x (a tensor, or a tuple or dict of them and plain values) on dev."""
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        return tuple(to_device(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: to_device(v, dev) for k, v in x.items()}
+    return x
+
+
+def ci_est_gate(name, dev_type="cuda"):
+    """One variant of CIE_VARIANTS, in a process of its own; returns plain
+    numbers and CPU tensors (for "unfused" also the fused run's numbers
+    from the same start; for "wbc" and "unfused" K7's arguments on the
+    first walking tick, for "wbc" the WBC's inputs, for the parent to
+    check)."""
+    dev = torch.device(dev_type, 0)
+    kw, batch, n_walk, n_timed = CIE_VARIANTS[name]
+    loop, pos0, launches, elapsed, seen = ci_est_run(dev, kw, batch, n_walk,
+                                                     n_timed)
+    pos, cs = loop.sim.pos, loop.controller
+    est = {1: cs.kf.x, 2: cs.ekf.x}.get(kw.get("kf_type"))
+    finite = torch.isfinite(pos).all(-1)
+    if est is not None:
+        finite &= torch.isfinite(est).all(-1)
+    ok = finite & upright(pos)
+    out = dict(batch=batch, ticks=CIE_STAND + n_walk, launches=launches,
+               upright=int(ok.sum()), finite=int(finite.sum()),
+               progress=float((pos[ok, 0] - pos0[ok, 0]).mean())
+               if bool(ok.any()) else None,
+               sink=float((pos0[finite, 2] - pos[finite, 2]).mean()),
+               rate=batch * n_timed / elapsed if n_timed else None,
+               tick_ms=elapsed / n_timed * 1e3 if n_timed else None)
+    if name in CIE_K7_CHECKED:
+        out["k7"] = seen["k7"]
+    if name == "wbc":
+        out["wbc"] = seen["wbc"]
+    if est is not None:
+        err = (est[ok, 0:3] - pos[ok]).abs()
+        out.update(est_z=float(err[:, 2].mean()),
+                   est_xy=float(err[:, 0:2].mean()))
+    if name == "unfused":
+        fused, _, f_launches, _, _ = ci_est_run(dev, {}, batch, n_walk, 0)
+        fp = fused.sim.pos
+        both = ok & torch.isfinite(fp).all(-1)
+        out.update(fused_launches=f_launches,
+                   fused_upright=int((torch.isfinite(fp).all(-1)
+                                      & upright(fp)).sum()),
+                   dev=float((pos[both] - fp[both]).abs().mean()),
+                   dz=abs(float(pos[both, 2].mean() - fp[both, 2].mean())))
+    return out
+
+
+def ci_est_k7(dev, name, r):
+    """K7 against its plain version (k7_gate, CIE_K7_CHECKED) on the
+    arguments it had on the first walking tick of the run `name` at B=32,
+    24 sweeps. Returns the kernel's largest Z error against plain
+    float32."""
+    from legged_mpc_control_tpu_torch.ops import ci_kernel
+
+    a, kw = to_device(r["k7"], dev)
+    return k7_gate(ci_kernel.ci_sweeps_cuda(*a, **kw), a, kw,
+                   f"B={a[0].shape[0]}, {kw['iters']} sweeps, {name} run",
+                   bracket=CIE_K7_CHECKED[name])
+
+
+def ci_est_wbc(dev, r):
+    """The WBC's feed-forward torques and forces on the card against the
+    same function on the CPU (both solve the hierarchy in float64), on the
+    inputs the CI loop's WBC had after its first tick: as they were (the
+    foot sensor's contacts: none) and with all four feet in contact (the
+    contact forces' levels). Returns the largest torque and force
+    differences."""
+    from types import SimpleNamespace
+
+    from legged_mpc_control_tpu_torch.control import wbc
+    from legged_mpc_control_tpu_torch.models import whole_body as wb
+
+    fbk, ctrl = r["wbc"]
+    errs = {}
+    for case, contacts in (("sensor contacts", None), ("four contacts", 1.0)):
+        c = dict(ctrl)
+        if contacts is not None:
+            c["plan_contacts"] = torch.full_like(c["plan_contacts"],
+                                                 contacts)
+        (tau, F), (tau_c, F_c) = (
+            [x.cpu() for x in wbc.wbc_from_controller(
+                SimpleNamespace(**to_device(fbk, d)),
+                SimpleNamespace(**to_device(c, d)),
+                wb.a1_wb_model(torch.float32, d))]
+            for d in (dev, torch.device("cpu")))
+        check(all(bool(torch.isfinite(x).all()) for x in (tau, F)),
+              f"WBC on the card, {case}: non-finite")
+        e_tau = float((tau.double() - tau_c.double()).abs().max())
+        e_F = float((F.double() - F_c.double()).abs().max())
+        print(f"   WBC card vs CPU, {case} (B={tau.shape[0]}): max |tau| "
+              f"{float(tau_c.abs().max()):.3e} N m, max |F| "
+              f"{float(F_c.abs().max()):.3e} N; differences: tau "
+              f"{e_tau:.3e} N m (tol {CIE_WBC_TAU_TOL}), F {e_F:.3e} N (tol "
+              f"{CIE_WBC_F_TOL})", flush=True)
+        check(e_tau < CIE_WBC_TAU_TOL and e_F < CIE_WBC_F_TOL,
+              f"WBC card vs CPU, {case}: tau {e_tau}, F {e_F}")
+        errs[case] = (e_tau, e_F)
+    return errs
+
+
+def phase_ci_estimated(dev, card, gates):
+    """The batched CI closed loop on estimated state and with the WBC: the
+    four runs of CIE_VARIANTS, each in a process of its own beside the
+    other gate runs (`submit_gates`): the upright share at least the JAX
+    package's, forward progress, the filters within bench.py's limits,
+    the unfused loop within bench.py's deviation rule of the fused one,
+    and the launches: K7 once a tick in every run, K2 once a tick in the
+    fused kf_type-0 run only, nothing else. Then, here, K7 against its
+    plain version at B=32 on the first walking tick of the WBC and the
+    unfused runs, and the WBC's torques on the card against the CPU's.
+    Returns (K7's launches a tick by variant, K7's largest Z error at
+    B=32 by run)."""
+    t0 = phase(f"CI closed loop on estimated state: A1, {CIE_STAND} stand "
+               "ticks then walking; kf_type 1 and 2 (B=256, 40 walk ticks, "
+               "10 timed), low_level_type 1 (B=32, 10 timed), kf_type 0 "
+               "unfused beside fused (B=32, 40): four processes beside the "
+               "gate runs")
+    per_tick = {}
+    for name, (kw, batch, n_walk, n_timed) in CIE_VARIANTS.items():
+        r = gates["ci_est", name].result()
+        n = r["ticks"]
+        share = r["upright"] / batch
+        line = (f"   {name}: {r['upright']} of {batch} finite and upright "
+                f"(the JAX package's share {CIE_MIN_SHARE[name]}), "
+                f"{r['finite']} finite, mean progress {r['progress']} m, "
+                f"mean height lost {r['sink']:.4f} m; launches over {n} "
+                f"ticks {r['launches']}")
+        if "est_z" in r:
+            line += (f"; estimate: mean z error {r['est_z']:.4e} m, xy "
+                     f"drift {r['est_xy']:.4e} m")
+        if name == "unfused":
+            line += (f"; the fused run: {r['fused_upright']} upright, "
+                     f"launches {r['fused_launches']}; unfused vs fused: "
+                     f"mean |dpos| {r['dev']:.3e} m, mean height shift "
+                     f"{r['dz']:.3e} m")
+        print(line, flush=True)
+        check(share >= CIE_MIN_SHARE[name],
+              f"CI {name}: {r['upright']} of {batch} upright")
+        if name == "wbc":
+            # the reference's WBC loop on the SRB sim falls freely (fault
+            # 15): held to its finite share and its mean height lost here,
+            # the WBC's own output below (ci_est_wbc)
+            check(r["finite"] == batch, f"CI wbc: {r['finite']} finite")
+            check(abs(r["sink"] - CIE_WBC_SINK[0]) < CIE_WBC_SINK[1],
+                  f"CI wbc: mean height lost {r['sink']}, the JAX "
+                  f"package's {CIE_WBC_SINK[0]}")
+        else:
+            check(r["progress"] is not None and r["progress"] > 0.0,
+                  f"CI {name}: progress {r['progress']}")
+        check(r["launches"] == {"ci_sweeps": n},
+              f"CI {name}: launches {r['launches']}, want K7 {n}")
+        if "est_z" in r:
+            check(r["est_z"] < CIE_EST_Z and r["est_xy"] < CIE_EST_XY,
+                  f"CI {name}: estimate off by {r['est_z']}, "
+                  f"{r['est_xy']} m")
+        if name == "unfused":
+            check(r["fused_launches"] == {"ci_sweeps": n,
+                                          "substep_chain": n},
+                  f"CI fused: launches {r['fused_launches']}")
+            check(r["fused_upright"] / batch >= CIE_MIN_SHARE[name],
+                  f"CI fused: {r['fused_upright']} of {batch} upright")
+            check(r["dev"] < CIE_DEV and r["dz"] < CIE_DZ,
+                  f"CI unfused vs fused: {r['dev']}, {r['dz']}")
+        per_tick[name] = r["launches"]["ci_sweeps"] // n
+    for name, metric in (("kf1", "ci_closed_loop_scenario_ticks_per_s_"
+                                 "b256_kf1"),
+                         ("kf2", "ci_closed_loop_scenario_ticks_per_s_"
+                                 "b256_kf2"),
+                         ("wbc", "ci_wbc_closed_loop_scenario_ticks_per_s_"
+                                 "b32")):
+        r = gates["ci_est", name].result()
+        print(f"   {metric} = {r['rate']:.1f} ({r['tick_ms']:.1f} ms a "
+              f"tick, beside the gate processes; {card}; diagnostic, "
+              "ungated, host-bound)", flush=True)
+    err32 = {name: ci_est_k7(dev, name, gates["ci_est", name].result())
+             for name in CIE_K7_CHECKED}
+    ci_est_wbc(dev, gates["ci_est", "wbc"].result())
+    done(t0)
+    return per_tick, err32
+
+
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 # BASELINE config 5 (SWEEP_r05.json's recipe): the 65,536-scenario Go1 trot
@@ -3337,11 +3646,13 @@ def main():
     terrain_launches, _, terrain_state = phase_ci_terrain(dev, card)
     k6 = phase_k6(dev, card, terrain_state)
     with concurrent.futures.ProcessPoolExecutor(
-            15, mp_context=multiprocessing.get_context("spawn")) as pool:
+            POOL_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
         _, gates = phase_config4(dev, card, pool)
         phase_wb(dev, card, gates)
         lean_systems, lci_qps, per_tick = phase_lci(dev, card, gates)
         cli_per_tick = phase_cli(dev, card, gates)
+        ci_est_per_tick, k7_err_b32 = phase_ci_estimated(dev, card, gates)
     config4_timed(dev, card)
     wb_k45, _, _ = phase_wb_timed(dev, card)
     phase_lci_timed(dev, card)
@@ -3409,6 +3720,16 @@ def main():
     rows["chol_factor"]["ms_n96_b1"] = n96["ms4"]
     rows["chol_solve"]["ms_n96_b1"] = n96["ms5"]
     rows["ci_sweeps"]["ms_b1"] = k7["ms1"]
+    rows["ci_sweeps"]["bound_ms_b1"] = k7["bound_ms_b1"]
+    for r, k in zip(kernels["kernels"][1:3], (k2, k3)):
+        r["ms_b256"] = k["ms_b256"]
+        r["bound_ms_b256"] = k["bound_ms_b256"]
+    # the CI loop on estimated state and with the WBC: K7's launches a tick
+    for name, n in ci_est_per_tick.items():
+        if name != "unfused":
+            rows["ci_sweeps"]["launches_ci_" + name] = n
+    rows["ci_sweeps"]["max_abs_err_b32"] = k7_err_b32["unfused"]
+    rows["ci_sweeps"]["max_abs_err_b32_wbc"] = k7_err_b32["wbc"]
     # config 5 (B=65,536): launches a tick, time, error and bound; the
     # CLI's paths: launches a tick
     for name, k in (("riccati_ipm", "k1"), ("substep_chain", "k2")):

@@ -12,9 +12,12 @@ substep chain with and without the in-chain KF (`ops/substep_kernel.py`,
 condensed solvers (`ops/chol_kernel.py`, `csrc/chol_factor.cu` and
 `csrc/chol_lanes.cu`). The
 contact-implicit MPC (`mpc/ci_mpc.py` behind the LCI seam `mpc/lci_mpc.py`,
-`control/step.closed_loop_tick_lci_batched`) runs all its sweeps in one
-kernel on flat ground (`ops/ci_kernel.py`, `csrc/ci_sweeps.cu`) and its
-gain solves on the Cholesky kernels on a height field (`sim/terrain.py`).
+`control/step.closed_loop_tick_lci_batched`, on ground truth, either
+filter or the WBC) runs all its sweeps in one kernel on flat ground
+(`ops/ci_kernel.py`, `csrc/ci_sweeps.cu`) and its gain solves on the
+Cholesky kernels on a height field (`sim/terrain.py`). Every public name
+of the JAX package has its counterpart here or a stated replacement
+(tests/test_torch_census.py).
 CUDA tensors run the kernels, CPU tensors their plain PyTorch versions.
 Entry points that build state from nothing default to the card; pass
 `device="cpu"` to build on the CPU. The sweep across processes

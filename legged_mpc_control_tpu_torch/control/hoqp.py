@@ -119,14 +119,21 @@ def soft_nullspace(A, tol=1e-8):
     tol * s_max (or that have none, n > k) span the null space. The basis
     torch's SVD returns may differ from another library's by a rotation
     within the null space; the hierarchy's solution does not depend on
-    it."""
+    it. A matrix with a non-finite entry gets an all-NaN basis, as in the
+    JAX package, and leaves the batch's other scenarios as they are
+    (torch's SVD refuses a non-finite input, so it is given zeros)."""
     k, n = A.shape[-2:]
-    _, sv, vh = torch.linalg.svd(A, full_matrices=True)
+    bad = ~torch.isfinite(A).all(-1).all(-1)
+    _, sv, vh = torch.linalg.svd(
+        torch.where(bad[:, None, None], torch.zeros_like(A), A),
+        full_matrices=True)
     smax = torch.clamp(sv[:, :1], min=1.0)
     mask = torch.cat([(sv < tol * smax).to(A.dtype),
                       torch.ones((A.shape[0], n - min(k, n)), dtype=A.dtype,
                                  device=A.device)], -1)
-    return vh.transpose(-1, -2) * mask[:, None, :]
+    basis = vh.transpose(-1, -2) * mask[:, None, :]
+    return torch.where(bad[:, None, None],
+                       torch.full_like(basis, float("nan")), basis)
 
 
 def hoqp_solve(tasks: Sequence[HoTask], n: int, *, iters=20, damping=1e-9):

@@ -374,17 +374,18 @@ def unpack_fused_feedback(cs: ControllerState, sim: srb_sim.SimState, out,
 
 
 def seed_batched_feedback(loop: LoopState, params: RobotParams, *,
-                          kf_type: int = 0,
+                          kf_type: int = 0, terrain=None,
                           substeps: int = C.SUBSTEPS_PER_MPC_TICK
                           ) -> LoopState:
     """One feedback pass from the raw sim sensors (under kf_type 1 it also
     initializes the filter): seeds the carry of a `carry_feedback` rollout,
-    after which the substep chain's `fb` block keeps the Feedback current."""
+    after which the substep chain's `fb` block keeps the Feedback current.
+    `terrain`: a height field the footholds snap to, or None."""
     dt_ll = C.MPC_DT / substeps
     cs = loop.controller
     grf_n = _anchored_normal_force(cs.ctrl.joint_tau_tgt, loop.sim, params)
     cs = feedback_update(cs, _sim_sensors(loop.sim, params, grf_n), params,
-                         dt_ll, kf_type=kf_type)
+                         dt_ll, kf_type=kf_type, terrain=terrain)
     return loop.replace(controller=cs)
 
 
@@ -608,37 +609,47 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
 def closed_loop_tick_lci_batched(loop: LoopState, lci_state, params:
                                  RobotParams, stand_policy, walk_policy, t,
                                  *, substeps: int = C.SUBSTEPS_PER_MPC_TICK,
-                                 terrain=None):
-    """One scenario-batched closed-loop tick through the LCI-MPC backend
-    (ground-truth state, kf_type 0, and the joint PD low level):
-    feedback, the seam (`lci_mpc.lci_mpc_tick_batched`, whose batched CI
-    walk policy runs one `ci_solve_batched`), then the substeps. `params`
-    are shared by the batch (unbatched leaves); `terrain` a
-    `sim.terrain.Terrain` height field or None for flat ground.
+                                 kf_type: int = 0, low_level_type: int = 0,
+                                 terrain=None, fused_substeps: bool = True):
+    """One scenario-batched closed-loop tick through the LCI-MPC backend:
+    feedback (kf_type 0 ground truth, 1 the linear KF, 2 the EKF), the
+    seam (`lci_mpc.lci_mpc_tick_batched`, whose batched CI walk policy
+    runs one `ci_solve_batched`), then the substeps with the J^T tau low
+    level (low_level_type 0) or the WBC (1, against A1's whole-body
+    model). `params` are shared by the batch (unbatched leaves); `terrain`
+    a `sim.terrain.Terrain` height field or None for flat ground.
 
-    On flat ground the substeps run as one substep chain (kernel K2 on
-    CUDA, the plain version on CPU); on a height field as the per-substep
-    loop with the terrain in the sim step and the footholds. Returns
-    (loop', lci_state')."""
+    With `fused_substeps`, on flat ground, under kf_type 0 and
+    low_level_type 0 the substeps run as one substep chain (kernel K2 on
+    CUDA, the plain version on CPU); otherwise as the per-substep loop
+    with the filter, the low level and the terrain in the sim step and
+    the footholds, as in the JAX package. kf_type 1 never takes the
+    chain's in-filter variant (K3) here: the JAX tick runs the KF
+    unfused. Returns (loop', lci_state')."""
+    _check_kf_type(kf_type)
+    _check_low_level_type(low_level_type)
     dt_mpc = C.MPC_DT
     dt_ll = dt_mpc / substeps
     pb = broadcast_params(params, loop.sim.pos.shape[0])
-    cs = loop.controller
-    grf_n = _anchored_normal_force(cs.ctrl.joint_tau_tgt, loop.sim, pb)
-    cs = feedback_update(cs, _sim_sensors(loop.sim, pb, grf_n), pb, dt_ll,
-                         terrain=terrain)
+    world = _srb_world(pb, dt_ll, terrain)
+    cs = feedback_update(loop.controller, world[1](loop.controller,
+                                                   loop.sim),
+                         pb, dt_ll, kf_type=kf_type, terrain=terrain)
     cs, lci_state = lci_mpc.lci_mpc_tick_batched(
         cs, lci_state, stand_policy, walk_policy, t, dt_mpc)
 
-    if terrain is None:
+    if (fused_substeps and terrain is None and kf_type == 0
+            and low_level_type == 0):
         out, sim = _substep_chain(cs, loop.sim, pb, substeps, dt_ll, 0)
         cs = cs.replace(ctrl=cs.ctrl.replace(
             joint_ang_tgt=out["q_tgt"], joint_vel_tgt=out["dq_tgt"],
             joint_tau_tgt=out["tau_ff"]))
         return LoopState(controller=cs, sim=sim), lci_state
 
-    cs, sim = _substep_loop(cs, loop.sim, pb, substeps, dt_ll, 0, terrain,
-                            _srb_world(pb, dt_ll, terrain))
+    cs, sim = _substep_loop(cs, loop.sim, pb, substeps, dt_ll, kf_type,
+                            terrain, world, low_level_type,
+                            _wbc_model(None, cs.fbk.root_pos)
+                            if low_level_type == 1 else None)
     return LoopState(controller=cs, sim=sim), lci_state
 
 

@@ -86,6 +86,72 @@ def ik(p, q_ref, rho_fix):
     return best
 
 
+# --- calibration surface (reference: A1Kinematics.h:21-35) ---
+# rho_opt = (cx, cy, cz): the foot-contact offset in the CALF frame; the
+# reference's generated d_fk_dc (A1Kinematics.cpp autoFunc_d_fk_dc) is
+# exactly Rx(q1) Ry(q2+q3), the calf-frame rotation. Where the reference
+# carries MATLAB-generated closed forms of the calibration derivatives,
+# these are torch.func.jacfwd of one FK, vmapped over the leading axes.
+
+
+def _calf_rot(q):
+    """Body-from-calf rotation Rx(q1) Ry(q2+q3): q (..., 3) -> (..., 3, 3)."""
+    q1, q23 = q[..., 0], q[..., 1] + q[..., 2]
+    s1, c1 = torch.sin(q1), torch.cos(q1)
+    s, c = torch.sin(q23), torch.cos(q23)
+    zero = torch.zeros_like(q1)
+    return torch.stack([torch.stack([c, zero, s], dim=-1),
+                        torch.stack([s1 * s, c1, -s1 * c], dim=-1),
+                        torch.stack([-c1 * s, s1, c1 * c], dim=-1)], dim=-2)
+
+
+def fk_cal(q, rho_opt, rho_fix):
+    """FK with the calf-frame contact offset rho_opt (..., 3) (reference fk
+    with rho_opt): (..., 3)."""
+    return fk(q, rho_fix) + (_calf_rot(q) @ rho_opt[..., None])[..., 0]
+
+
+def _per_leg(fn, q, rho_opt, rho_fix):
+    """fn of one leg's (q (3,), rho_opt (3,), rho_fix (5,)) over the
+    broadcast leading axes of the three, through torch.func.vmap."""
+    lead = torch.broadcast_shapes(q.shape[:-1], rho_opt.shape[:-1],
+                                  rho_fix.shape[:-1])
+    args = [x.expand(lead + x.shape[-1:]).reshape((-1,) + x.shape[-1:])
+            for x in (q, rho_opt, rho_fix)]
+    out = torch.func.vmap(fn)(*args)
+    return out.reshape(lead + out.shape[1:])
+
+
+def _jac_cal1(q, rho_opt, rho_fix):
+    return torch.func.jacfwd(fk_cal)(q, rho_opt, rho_fix)
+
+
+def jac_cal(q, rho_opt, rho_fix):
+    """d fk_cal / d q (..., 3, 3) (reference jac with rho_opt)."""
+    return _per_leg(_jac_cal1, q, rho_opt, rho_fix)
+
+
+def dfk_drho(q, rho_opt, rho_fix):
+    """d fk / d rho_opt (..., 3, 3) (reference dfk_drho =
+    autoFunc_d_fk_dc)."""
+    return _per_leg(torch.func.jacfwd(fk_cal, argnums=1), q, rho_opt,
+                    rho_fix)
+
+
+def dJ_dq(q, rho_opt, rho_fix):
+    """d vec(J) / d q (..., 9, 3), vec row-major over J's (row, col)
+    (reference dJ_dq, in this 9x3 layout rather than Eigen's)."""
+    full = _per_leg(torch.func.jacfwd(_jac_cal1), q, rho_opt, rho_fix)
+    return full.reshape(full.shape[:-3] + (9, 3))
+
+
+def dJ_drho(q, rho_opt, rho_fix):
+    """d vec(J) / d rho_opt (..., 9, 3) (reference dJ_drho)."""
+    full = _per_leg(torch.func.jacfwd(_jac_cal1, argnums=1), q, rho_opt,
+                    rho_fix)
+    return full.reshape(full.shape[:-3] + (9, 3))
+
+
 fk_legs = fk      # (..., 4, 3), (..., 4, 5) -> (..., 4, 3)
 jac_legs = jac    # -> (..., 4, 3, 3)
 ik_legs = ik      # -> (..., 4, 3)

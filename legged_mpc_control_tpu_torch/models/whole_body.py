@@ -28,6 +28,8 @@ from legged_mpc_control_tpu_torch.config import resolve_device
 from legged_mpc_control_tpu_torch.constants import GRAVITY_EST
 from legged_mpc_control_tpu_torch.tree import Struct, from_numpy
 
+N_Q = 18
+N_JOINTS = 12
 # URDF leg geometry (A1 const.xacro): the dynamics model uses the URDF's
 # 0.2 m thigh and calf, the controller's kinematics the reference's 0.21 m
 LEG_OFFSET_X = 0.1805

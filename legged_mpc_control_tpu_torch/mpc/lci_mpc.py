@@ -22,13 +22,18 @@ single-robot seam `lci_mpc_tick`, a B=1 view of the batched one.
 
 import functools
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from legged_mpc_control_tpu_torch.config import RobotParams, resolve_device
 from legged_mpc_control_tpu_torch.tree import Struct
+
+# a stateless policy: (x (B, X_DIM), t (B,)) -> (B, OUT_DIM)
+PolicyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+X_DIM = 40
+OUT_DIM = 78
 
 
 @dataclass

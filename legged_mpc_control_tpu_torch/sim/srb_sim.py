@@ -82,10 +82,10 @@ def sim_init(params: RobotParams, heights, dtype=torch.float32,
 
 
 def sim_step(s: SimState, tau, params: RobotParams, dt,
-             terrain=None) -> SimState:
-    """Advance the world by dt under joint torques tau (B,12), on flat
-    ground at z = 0 or on the `terrain` height field, sampled under each
-    foot."""
+             terrain_height=0.0, terrain=None) -> SimState:
+    """Advance the world by dt under joint torques tau (B,12), on a flat
+    plane at z = `terrain_height` (a float) or, when `terrain` is given,
+    on that height field, sampled under each foot."""
     B = s.pos.shape[0]
     R = so3.quat_to_rotmat(s.quat)
     R4 = R[:, None]
@@ -112,7 +112,7 @@ def sim_step(s: SimState, tau, params: RobotParams, dt,
     # surface: anchoring there would teleport it up the riser), release
     # when the support commanded through the leg vanishes
     if terrain is None:
-        ground_h = torch.zeros_like(foot_world[..., 2])
+        ground_h = torch.full_like(foot_world[..., 2], terrain_height)
     else:
         ground_h = terrain_mod.height_at(terrain, foot_world[..., :2])
     touching = ((foot_world[..., 2] <= ground_h)

@@ -35,6 +35,7 @@ from legged_mpc_control_tpu_torch.ops import (
     substep_kernel,
 )
 from legged_mpc_control_tpu_torch.interfaces.sim_iface import SimInterface
+from legged_mpc_control_tpu_torch.models import srb
 from legged_mpc_control_tpu_torch.models import whole_body as wb
 from legged_mpc_control_tpu_torch.parallel import distributed, runner
 from legged_mpc_control_tpu_torch.sim import srb_sim, terrain, wb_sim
@@ -201,6 +202,8 @@ def test_kf_type_2_raises(small_loop):
             wb_loop, step.broadcast_params(p, 2), pattern, model,
             kf_type=3),
         lambda: runner.make_batched_rollout_wb(pattern, model, kf_type=3),
+        lambda: step.closed_loop_tick_lci_batched(loop, None, params, None,
+                                                  None, 0.0, kf_type=3),
         lambda: substep_kernel.substep_chain_cuda(
             *([None] * 21), substeps=8, dt=0.00125, kf_type=2)]
     for call in calls:
@@ -259,7 +262,10 @@ def test_low_level_type_1_raises(small_loop):
         lambda: step.closed_loop_tick_lci(loop, None, params, None, None,
                                           0.0, low_level_type=2),
         lambda: step.closed_loop_tick_lci_wb(wb_loop, None, p, model, None,
-                                             None, 0.0, low_level_type=2)]
+                                             None, 0.0, low_level_type=2),
+        lambda: step.closed_loop_tick_lci_batched(loop, None, params, None,
+                                                  None, 0.0,
+                                                  low_level_type=2)]
     for call in lci_calls:
         with pytest.raises(NotImplementedError):
             call()
@@ -298,6 +304,8 @@ ENTRY_POINTS = {
     "init_ctrl": lambda: init_ctrl(2),
     "init_joy": lambda: init_joy(2),
     "moving_window_init": lambda: filters.moving_window_init(3, 2),
+    "savgol_init": lambda: filters.savgol_init(9, 2),
+    "gravity_affine": lambda: srb.gravity_affine(0.01),
     "terrain.flat": lambda: terrain.flat(),
     "terrain.stairs": lambda: terrain.stairs(),
     "terrain.wall_at_x": lambda: terrain.wall_at_x(0.4),
