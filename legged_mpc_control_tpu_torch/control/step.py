@@ -59,6 +59,7 @@ from legged_mpc_control_tpu_torch.types import (
     init_feedback,
     init_joy,
 )
+from legged_mpc_control_tpu_torch.utils import trace
 
 EKF_STATE_SIZE = ekf_mod.STATE_SIZE
 
@@ -218,6 +219,7 @@ def _feedback(fbk, ctrl, kf, sensors_raw, params: RobotParams, dt,
                              foot_pos_target_world=target_world), kf
 
 
+@trace.spanned(trace.FEEDBACK_UPDATE)
 def feedback_update(cs: ControllerState, sensors_raw, params: RobotParams,
                     dt, kf_type: int = 0, terrain=None) -> ControllerState:
     """Feedback-thread body: raw sensors -> Feedback + Raibert targets, with
@@ -325,6 +327,7 @@ def admm_warm_init(batch: int, horizon: int, dtype=torch.float32,
             z, z.clone())
 
 
+@trace.spanned(trace.FEEDBACK_UNPACK)
 def unpack_fused_feedback(cs: ControllerState, sim: srb_sim.SimState, out,
                           params: RobotParams,
                           kf_type: int = 0) -> ControllerState:
@@ -389,6 +392,7 @@ def seed_batched_feedback(loop: LoopState, params: RobotParams, *,
     return loop.replace(controller=cs)
 
 
+@trace.spanned(trace.K2)
 def _substep_chain(cs: ControllerState, sim: srb_sim.SimState,
                    params: RobotParams, substeps, dt, kf_type):
     """All substeps of a tick as one substep chain (kernel K2, or K3 under
@@ -454,6 +458,7 @@ def _substep_loop(cs: ControllerState, sim, params: RobotParams, substeps,
     return cs, sim
 
 
+@trace.spanned(trace.TICK)
 def closed_loop_tick(loop: LoopState, params: RobotParams,
                      pattern: gait_mod.GaitPattern, *, horizon: int = 10,
                      substeps: int = C.SUBSTEPS_PER_MPC_TICK,
@@ -540,6 +545,7 @@ def closed_loop_tick_wb_batched(loop: LoopState, params: RobotParams,
     return LoopState(controller=cs, sim=sim), warm
 
 
+@trace.spanned(trace.TICK)
 def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
                              pattern: gait_mod.GaitPattern, *,
                              horizon: int = 10,
@@ -606,6 +612,7 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
     return LoopState(controller=cs, sim=sim), warm
 
 
+@trace.spanned(trace.TICK)
 def closed_loop_tick_lci_batched(loop: LoopState, lci_state, params:
                                  RobotParams, stand_policy, walk_policy, t,
                                  *, substeps: int = C.SUBSTEPS_PER_MPC_TICK,
@@ -653,6 +660,7 @@ def closed_loop_tick_lci_batched(loop: LoopState, lci_state, params:
     return LoopState(controller=cs, sim=sim), lci_state
 
 
+@trace.spanned(trace.TICK)
 def closed_loop_tick_lci(loop: LoopState, lci_state, params: RobotParams,
                          stand_policy, walk_policy, t, *,
                          substeps: int = C.SUBSTEPS_PER_MPC_TICK,

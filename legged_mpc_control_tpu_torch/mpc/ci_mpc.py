@@ -48,6 +48,7 @@ from legged_mpc_control_tpu_torch.config import resolve_device
 from legged_mpc_control_tpu_torch.ops import chol_kernel, ci_kernel, so3
 from legged_mpc_control_tpu_torch.sim import terrain as terrain_mod
 from legged_mpc_control_tpu_torch.tree import Struct, from_numpy
+from legged_mpc_control_tpu_torch.utils import trace
 
 NZ = 24
 NU = 24
@@ -760,6 +761,7 @@ def ci_pallas_available(terrain, wall, horizon, dtype=torch.float32) -> bool:
             and (terrain is None or terrain_mod.is_flat_zero(terrain)))
 
 
+@trace.spanned(trace.CI_SOLVE)
 def ci_solve_batched(z0, U0, refs_z, refs_u, terrain, mass, inertia_w, mu,
                      wts: CiWeights = None, f_mask=None, *, iters=16,
                      dt=0.02, rho0=0.5, rho_min=0.05, reg=1e-2,
@@ -922,6 +924,7 @@ def make_ci_reference(z0, t, terrain, params, velx=0.2, body_height=0.3,
     return refs_z, refs_u, refs_u
 
 
+@trace.spanned(trace.CI_PREP)
 def _walk_prep(x, t, params, terrain, velx, body_height, gait_freq,
                horizon, dt_plan, offsets, stance_frac):
     """Per-scenario prep of the CI walk policy, batched: x (B,40), t (B,).
@@ -949,6 +952,7 @@ def _walk_prep(x, t, params, terrain, velx, body_height, gait_freq,
     return z0, refs_z, refs_u, U0, inertia_w, f_mask, grounded_now, feet_w
 
 
+@trace.spanned(trace.CI_POST)
 def _walk_post(U, Z, refs_z, grounded_now, feet_w, terrain, fz_min):
     """A CI walk solve into the (B, 78) seam output: support gating,
     touchdown press, swing targets."""

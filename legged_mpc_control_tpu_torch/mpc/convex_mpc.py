@@ -28,6 +28,7 @@ from legged_mpc_control_tpu_torch.mpc import (
 from legged_mpc_control_tpu_torch.ops.filters import moving_window_update
 from legged_mpc_control_tpu_torch.tree import tree_map
 from legged_mpc_control_tpu_torch.types import ControllerState
+from legged_mpc_control_tpu_torch.utils import trace
 
 
 SOLVERS = ("riccati", "pdip", "admm")
@@ -51,6 +52,7 @@ class StageQP(NamedTuple):
     fz_max: torch.Tensor      # (B,)
 
 
+@trace.spanned(trace.MPC_PREPARE)
 def mpc_prepare(state: ControllerState, params: RobotParams,
                 pattern: gait_mod.GaitPattern, dt, *,
                 horizon: int) -> Tuple[ControllerState, StageQP]:
@@ -123,6 +125,7 @@ def mpc_prepare(state: ControllerState, params: RobotParams,
     return state, stage
 
 
+@trace.spanned(trace.MPC_FINISH)
 def mpc_finish(state: ControllerState, grf) -> ControllerState:
     """Pack the GRFs (B,12) and the FSM foot targets into optimized_state /
     optimized_input (reference: ConvexMpc.cpp:49-57)."""

@@ -29,6 +29,7 @@ import torch
 
 from legged_mpc_control_tpu_torch.config import RobotParams, resolve_device
 from legged_mpc_control_tpu_torch.tree import Struct
+from legged_mpc_control_tpu_torch.utils import trace
 
 # a stateless policy: (x (B, X_DIM), t (B,)) -> (B, OUT_DIM)
 PolicyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -114,6 +115,7 @@ def pack_policy_state(fbk, lci: LciState):
     return x, foot_pos_f, foot_vel_f
 
 
+@trace.spanned(trace.LCI_SEAM)
 def lci_mpc_tick_batched(state, lci: LciState, stand_policy, walk_policy, t,
                          dt):
     """One LCI-MPC update of every scenario (LciMpc.cpp:45-153). A walk

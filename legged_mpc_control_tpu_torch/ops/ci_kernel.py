@@ -28,6 +28,7 @@ import functools
 import torch
 
 from legged_mpc_control_tpu_torch.ops import cuda_build
+from legged_mpc_control_tpu_torch.utils import trace
 
 NZ = 24
 NW = 52
@@ -66,6 +67,7 @@ def max_horizon():
     return _lib().ci_sweeps_max_h()
 
 
+@trace.spanned(trace.K7)
 def ci_sweeps_cuda(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass,
                    Iw_inv, *, iters, dt, s_f, rho_min, reg, state_reg):
     """The sweep loop: kernel K7 on CUDA tensors, the plain version on CPU

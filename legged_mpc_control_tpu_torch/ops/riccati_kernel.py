@@ -15,6 +15,7 @@ import functools
 import torch
 
 from legged_mpc_control_tpu_torch.ops import cuda_build
+from legged_mpc_control_tpu_torch.utils import trace
 
 NX = 12
 
@@ -62,6 +63,7 @@ def _per_scenario(v, n, B, dev):
     return t.reshape(-1, n).expand(B, n).contiguous(), n
 
 
+@trace.spanned(trace.K1)
 def solve_qp_riccati_cuda(x0, x_ref, A_seq, Bmat, contact, q_weights,
                           r_weights, mu, fz_max, dt, *, iters=18,
                           warm_u=None):

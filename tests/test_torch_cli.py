@@ -110,7 +110,8 @@ def test_cli_bag_and_profile(tmp_path):
     assert data["tick_wall_ms"].shape == (3,)
     assert meta["args"]["cpu"] and meta["dt"] == 0.01
     with open(os.path.join(prof, "trace.json")) as fh:
-        assert json.load(fh)["traceEvents"]
+        events = json.load(fh)["traceEvents"]
+    assert sum(ev.get("name") == "lmpc.tick" for ev in events) == 3
 
 
 def _walk(iface, velx, xp):
