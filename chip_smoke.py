@@ -4,8 +4,8 @@
 
 Builds every hand-written CUDA kernel of the port from
 legged_mpc_control_tpu_torch/csrc with nvcc (sm_90a, one nvcc per source,
-all at once; K1's two, K4's three and K5/K6's five variants and K7 must
-show no stack frame and no spills), holds each against its plain PyTorch
+all at once; K1's two, K4's three, K5/K6's five and K7's two variants
+must show no stack frame and no spills), holds each against its plain PyTorch
 version at its path's shapes (K1 at H=10 and H=30, and at the loop's own
 call, iters=4 warm; K4 and K5 at n=120 with B=4096 and B=1, n=360, n=24
 (K4)), then drives the paths of the
@@ -16,8 +16,10 @@ through their quality gates and times them at B=4096: Riccati with kf_type
 condensed solve rate and the B=1 solve latencies. Then the contact-implicit
 MPC (`control/step.closed_loop_tick_lci_batched`, A1, B=256): the flat
 closed loop (K7, K2) with its 24-vs-48-sweep gate, K7 against its plain
-version at B=256 (24 sweeps) and B=1 (32 sweeps), the B=1 CI policy
-latency (K7), and the box-step terrain loop (K4,
+version at B=256 (24 sweeps) and B=1 (32 sweeps), both K7 variants'
+resident blocks an SM and, at B=4096, the batch variant bit for bit the
+latency variant and both timed, the B=1 CI policy latency (K7), and the
+box-step terrain loop (K4,
 K6) with K4 + K6 against the plain path. Then BASELINE config 4: the H=30
 solve rate (K1) and the convex closed loop on a height field (A1, B=64,
 standing_trot, H=30; the platform and the stairs of
@@ -284,6 +286,9 @@ K23_VARIANTS = ("substep_chain_kernelILb0E", "substep_chain_kernelILb1E")
 # csrc/chol_lanes.cu
 K56_VARIANTS = ("chol_solve_tri", "chol_solve_stream", "chol_solve_ring",
                 "chol_solve_multi_regs", "chol_solve_multi_smem")
+# K7's batch and latency variants (csrc/ci_sweeps.cu), the batch variant's
+# name first: the latency variant's is a prefix of it
+K7_VARIANTS = ("ci_sweeps_batch", "ci_sweeps")
 # sources whose every kernel must build with no stack frame and no spills
 # (K2/K3: no spills; sinf/cosf keep the words of their large-argument range
 # reduction in a 32-byte stack frame)
@@ -292,7 +297,7 @@ GATED = {"riccati_ipm": ("K1", K1_VARIANTS),
          "substep_chain": ("K2/K3", K23_VARIANTS),
          "chol_factor": ("K4", K4_VARIANTS),
          "chol_lanes": ("K5/K6", K56_VARIANTS),
-         "ci_sweeps": ("K7", ("ci_sweeps",))}
+         "ci_sweeps": ("K7", K7_VARIANTS)}
 
 
 def ptxas_report(log):
@@ -1247,6 +1252,11 @@ CI_VELX = 0.1
 # the 99th percentile of the per-scenario errors).
 K7_TOL = {"cost": 2e-3, "Z": 2e-3, "forces": 0.5, "foot_vel": 2e-2}
 K7_SHARE = 0.99
+# K7 at B=256 (24 sweeps) and B=1 (32 sweeps) before its batch variant,
+# ms (PERF.md's kernel table), which the latency variant keeps; the batch
+# the batch variant is timed at (the benchmark's CI cell)
+K7_LATENCY_MS = (2.552, 3.001)
+K7_BATCH_B = 4096
 # Where the float64 pivots are robust: K6's agreement with its plain
 # version on the same factor, and that of the terrain path's K4 + K6 with
 # the plain path, relative to the matrix's largest entry; and the backward
@@ -1454,11 +1464,76 @@ def phase_k7(dev, card, st):
     ms1 = cuda_ms(lambda: ci_kernel.ci_sweeps_cuda(*one, **kw1), reps=5)
     print(f"   time ({card}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
           f"per 24-sweep solve; bound {b_ms:.3g} ms ({b_by}); kernel at "
-          f"B=1, 32 sweeps {ms1:.3f} ms, bound {b1:.3g} ms ({b1_by})",
-          flush=True)
+          f"B=1, 32 sweeps {ms1:.3f} ms, bound {b1:.3g} ms ({b1_by}); "
+          f"{ms / K7_LATENCY_MS[0]:.3f}x / {ms1 / K7_LATENCY_MS[1]:.3f}x "
+          f"the {K7_LATENCY_MS[0]} / {K7_LATENCY_MS[1]} ms of the kernel "
+          "before its batch variant", flush=True)
     done(t0)
-    return dict(err=max(err, err1), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, ms1=ms1, bound_ms_b1=b1)
+    big = phase_k7_batch(dev, card, k7_bound,
+                         {f"B={CI_B}": (a, kw, ms), "B=1": (one, kw1, ms1)})
+    return dict(err=max(err, err1, big.pop("err_b4096")), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ms1=ms1,
+                bound_ms_b1=b1, **big)
+
+
+def phase_k7_batch(dev, card, k7_bound, small):
+    """K7's two variants: their resident blocks an SM at H=10 and 12 (the
+    occupancy API), and at B=4096 (the benchmark's CI batch, walked in 20
+    ticks, 24 sweeps) the dispatch's launch (the batch variant) bit for bit
+    the latency variant's and against the plain version (k7_gate), both
+    timed beside the bound; the batch variant also timed on phase_k7's
+    calls `small` ({label: (args, kw, the latency variant's ms)}), which
+    the dispatch leaves to the latency variant."""
+    from legged_mpc_control_tpu_torch.ops import ci_kernel
+
+    t0 = phase(f"K7 batch variant: residency; B={K7_BATCH_B}, H=10, 24 "
+               "sweeps, bit for bit the latency variant and against plain, "
+               "both timed")
+    residency = {H: ci_kernel.residency(dev.index, H) for H in (10, 12)}
+    for H, (lat, bat, sms) in residency.items():
+        print(f"   H={H}: resident blocks an SM, latency {lat}, batch {bat} "
+              f"({sms} SMs: a wave of {lat * sms} / {bat * sms} scenarios)",
+              flush=True)
+    seen = {}
+    kernel = ci_kernel.ci_sweeps_cuda
+
+    def capture(*a, **kw):
+        seen["args"] = (a, kw)
+        return kernel(*a, **kw)
+    st = ci_roll(ci_setup(dev, K7_BATCH_B, 24), 20)
+    with patched(ci_kernel, ci_sweeps_cuda=capture):
+        ci_roll(st, 1, t0=0.2)
+    a, kw = seen["args"]
+    prepared = ci_kernel._prepare(*a, **kw)
+    latency = ci_kernel._lib().ci_sweeps_launch
+    want = ci_kernel._run(latency, prepared)
+    with launch_counts() as n:
+        got = ci_kernel.ci_sweeps_cuda(*a, **kw)
+    check(n == {"ci_sweeps": 1, "ci_sweeps_batch": 1},
+          f"K7 B={K7_BATCH_B}: launches {n}, want the batch variant once")
+    check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+              for x, y in zip(got, want)),
+          f"K7 B={K7_BATCH_B}: the batch variant differs from the latency "
+          "variant")
+    err = k7_gate(got, a, kw, f"B={K7_BATCH_B}")
+    ms = cuda_ms(lambda: ci_kernel.ci_sweeps_cuda(*a, **kw), reps=5)
+    ms_lat = cuda_ms(lambda: ci_kernel._run(latency, prepared), reps=5)
+    bound_ms, bound_by = k7_bound(K7_BATCH_B, kw["iters"])
+    print(f"   time ({card}): batch variant {ms:.3f} ms, latency variant "
+          f"{ms_lat:.3f} ms per 24-sweep solve at B={K7_BATCH_B}; bound "
+          f"{bound_ms:.3g} ms ({bound_by}): {100 * bound_ms / ms:.2f} % / "
+          f"{100 * bound_ms / ms_lat:.2f} % of it; bit for bit equal",
+          flush=True)
+    batch = ci_kernel._lib().ci_sweeps_batch_launch
+    for label, (sa, skw, lat_ms) in small.items():
+        sp = ci_kernel._prepare(*sa, **skw)
+        bms = cuda_ms(lambda: ci_kernel._run(batch, sp), reps=5)
+        print(f"   {label}: batch variant {bms:.3f} ms, latency variant "
+              f"{lat_ms:.3f} ms (the dispatch's)", flush=True)
+    done(t0)
+    return dict(err_b4096=err, ms_b4096=ms, ms_b4096_latency=ms_lat,
+                bound_ms_b4096=bound_ms,
+                blocks_per_sm={f"H{H}": r[:2] for H, r in residency.items()})
 
 
 def phase_ci_latency(dev, card):
@@ -3721,6 +3796,9 @@ def main():
     rows["chol_solve"]["ms_n96_b1"] = n96["ms5"]
     rows["ci_sweeps"]["ms_b1"] = k7["ms1"]
     rows["ci_sweeps"]["bound_ms_b1"] = k7["bound_ms_b1"]
+    for key in ("ms_b4096", "ms_b4096_latency", "bound_ms_b4096",
+                "blocks_per_sm"):
+        rows["ci_sweeps"][key] = k7[key]
     for r, k in zip(kernels["kernels"][1:3], (k2, k3)):
         r["ms_b256"] = k["ms_b256"]
         r["bound_ms_b256"] = k["bound_ms_b256"]

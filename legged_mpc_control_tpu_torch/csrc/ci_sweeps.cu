@@ -36,21 +36,43 @@
 // for B=256, H=10, 24 sweeps at 67 TFLOP/s; it moves 1.4 MB. Neither roof
 // is near: a sweep is a chain of H dependent stages, each a chain of small
 // dependent steps (a 24x24 Cholesky of 24 column steps among them), so the
-// latency of that chain bounds it, at B=1 as at B=256 (two blocks an SM).
-// The old design (a warp a scenario, dense products in shared memory, six
-// serial forward passes, K and the trajectory in device memory) spent 128k
-// cycles a stage-sweep, 40 % of it in the Cholesky and the solve
-// (PERF.md). This design puts more of the SM on each scenario, not more
-// scenarios on an SM.
+// latency of that chain bounds one scenario, and what an SM holds of them
+// bounds a batch. The old design (a warp a scenario, dense products in
+// shared memory, six serial forward passes, K and the trajectory in device
+// memory) spent 128k cycles a stage-sweep, 40 % of it in the Cholesky and
+// the solve (PERF.md).
 //
-// Design: a block of 6 warps (192 threads) a scenario.
-// - Shared memory holds, for the whole launch, the nominal Z and U, the
-//   references, the gain cache K (H x 24 x 25) and kff, the stage matrices
-//   and five candidate trajectories (as the TPU kernel keeps them in VMEM):
-//   73 KB at H=10, 80 KB at H=12. The largest horizon that fits the 227 KB
-//   of a block is ci_sweeps_max_h(), 50; the wrapper refuses a larger one
-//   (the dispatch sends K7 H <= 12). At 150 registers a thread, two blocks
-//   share an SM.
+// Two variants, one body (`sweeps<Variant>`): every element of every
+// product, the Cholesky, the solve, each candidate and the argmin are the
+// same device functions with the same operations in the same order, so
+// the two agree bit for bit; they differ only in how a scenario maps onto
+// the SM. The wrapper (ops/ci_kernel.py) launches the batch variant when
+// the batch is past the latency variant's one wave and the batch variant
+// holds more scenarios an SM at that H (cudaOccupancyMaxActiveBlocks-
+// PerMultiprocessor, ci_sweeps_blocks_per_sm).
+// - `ci_sweeps`, the latency variant (B = 1 to a wave): a block of 6 warps
+//   (192 threads) a scenario, more of the SM on each scenario. Its shared
+//   memory holds, for the whole launch, the nominal Z and U, the
+//   references, the gain cache K (H x 24 x 25) and kff, the stage matrices,
+//   the dense Fz, Fu and five candidate trajectories (as the TPU kernel
+//   keeps them in VMEM): 73 KB at H=10, 80 KB at H=12. The largest horizon
+//   that fits the 227 KB of a block is ci_sweeps_max_h(), 50; the wrapper
+//   refuses a larger one (the dispatch sends K7 H <= 12). At 150 registers
+//   a thread, two blocks share an SM: 264 scenarios a wave on 132 SMs.
+// - `ci_sweeps_batch`, the batch variant (past a wave): a block of 3 warps
+//   (96 threads) a scenario, at most 168 registers a thread and 49 KB of
+//   shared memory at H=10 (54 KB at H=12), so that four blocks share an
+//   SM. Its thread t owns row t / 4 and columns t % 4 + 4 m (m < 6) of
+//   every 24x24 result. It keeps Fz, Fu only by column (the nonzeros).
+//   While warp 0 factors and solves, warps 1-2 build the next stage's
+//   columns and feet and then, after a barrier of their own, its Fu'Fu and
+//   Fu'Fz (the dense products' terms, read from the columns), into that
+//   stage's L and R, to which its step 3 adds the rest in place. The
+//   stage scratch is aliased by lifetime (Batch below), and the five
+//   candidate trajectories lie over all of it (dead by then); the
+//   candidates run two at once on warps 0 and 1, interleaved (warp 2
+//   runs candidate 2 twice: cheaper than a branch).
+// Design, both variants:
 // - The Q terms are the dense products F'(Vxx F) of the plain version, but
 //   summed over the nonzeros of Fz = I + dt S and Fu = dt T only: a column
 //   of either has at most 4 (the identity, pos <- v and eul <- om, the
@@ -61,21 +83,21 @@
 //   but rounds otherwise. Under either, about one scenario in a few
 //   hundred sits near a line-search tie and takes another path than the
 //   plain version in float32, as any change of rounding makes it do;
-//   PERF.md, tools/k7_accuracy.py.) The warps that wait on the Cholesky build the next
-//   stage's Fz, Fu (dense, and their columns' nonzero values) and its feet's
-//   quadratization, double-buffered. Thread t owns row t / 8 and columns
-//   t % 8 + 8 m (m < 3) of every 24x24 result. The three dense products of
-//   the value update, K'Quu, (K'Quu) K and K'Qux, are split the same way,
-//   24 FMAs an element.
+//   PERF.md, tools/k7_accuracy.py.) The warps that wait on the Cholesky
+//   build the next stage's Fz, Fu (by column, and dense in the latency
+//   variant) and its feet's quadratization. A thread owns one row and
+//   every CW-th column of each 24x24 result (CW = 8 latency, 4 batch). The
+//   three dense products of the value update, K'Quu, (K'Quu) K and K'Qux,
+//   are split the same way, 24 FMAs an element.
 // - The 24x24 Cholesky runs on warp 0 in registers, lane i holding row i,
 //   right-looking with shuffles (K4's n <= 32 variant, csrc/chol_factor.cu),
 //   sqrtf and a true reciprocal, so a non-positive pivot gives NaN and the
 //   stage guard trips. The 25-column triangular solve follows on the same
 //   warp, a lane a column, the column in registers, a __syncwarp a step
 //   (without it the compiler hoists every load of L and spills).
-// - The five line-search candidates run at once, one warp each, each
-//   writing its trajectory into its own slot: one pass a sweep instead of
-//   the old kernel's six. The feet's costs are summed after the rollout, a
+// - The five line-search candidates run a warp each (batch: warps 0 and 1
+//   two each, interleaved), each writing its trajectory into its own slot:
+//   one pass a sweep instead of the old kernel's six. The feet's costs are summed after the rollout, a
 //   (stage, foot) a lane. After one block barrier every thread picks the
 //   winner by the rule above and the block copies its slot into the
 //   nominal, so the committed trajectory is bit for bit the one that was
@@ -84,7 +106,7 @@
 //   thread of a block runs every barrier (a block is one scenario, so
 //   there is no ragged tail and no early exit).
 // - Register arrays are indexed by unrolled constants only (no stack
-//   frame, no spills: chip_smoke.py gates on it).
+//   frame, no spills: chip_smoke.py gates on it for both variants).
 // All arithmetic is float32 on the CUDA cores: the dense products left are
 // three 24x24x24 ones a stage, too small for a 64-row wgmma tile, and the
 // Cholesky of Quu + reg I + state_reg Fu'Fu is what float32 already strains
@@ -99,7 +121,8 @@
 
 // Phase marks, empty in the package's build: tools/k7_spans.py defines
 // them (K7_SPANS) to read clock64() around each phase on thread 0 (warp 0,
-// so the candidates' span is the alpha = 1 warp's pass and its wait).
+// so the candidates' span is the alpha = 1 warp's pass and its wait; in
+// the batch variant warp 0's two rounds).
 //   K7_SPAN(0): loads + initial rollout
 //   K7_SPAN(1): bwd: terminal value + stage H-1's Fz, Fu, quad_foot
 //   K7_SPAN(2): bwd: Vxx Fz, Vxx Fu, Qx, Qu
@@ -109,7 +132,7 @@
 //   K7_SPAN(6): bwd: K'Quu, K'Qux
 //   K7_SPAN(7): bwd: (K'Quu) K, Vx
 //   K7_SPAN(8): bwd: symmetrize + keep
-//   K7_SPAN(9): five candidates at once
+//   K7_SPAN(9): five candidates (batch: two at once on warp 0)
 //   K7_SPAN(10): argmin + copy of the winner
 //   K7_SPAN(11): store
 #ifndef K7_SPANS
@@ -127,9 +150,6 @@ constexpr int LDR = 25;          // of the gain system, its right-hand side
                                  // without bank conflicts)
 constexpr int NALPHA = 5;
 constexpr int WARP = 32;
-constexpr int NT = 192;          // threads a block: 6 warps
-constexpr int CW = 8;            // thread t owns row t / CW, cols t % CW + CW m
-constexpr int NM = N / CW;       // 3 columns a thread
 constexpr float F0 = 50.0f;
 constexpr float G0 = 0.02f;
 constexpr float GRAV = 9.81f;
@@ -143,15 +163,25 @@ constexpr int MAX_DEVICES = 64;
 __device__ __constant__ float ALPHAS[NALPHA] = {1.0f, 0.5f, 0.25f, 0.05f,
                                                 0.0f};
 
-// a stage's dynamics Jacobians and its feet's quadratization
-struct StageT {
-  float Fz[N * LD], Fu[N * LD];      // Fz = I + dt S, Fu = dt T
-  // column c's values at its rows fz_rows(c), fu_rows(c)
+// the per-scenario constants and weights every phase reads
+struct Consts {
+  float refT[N], iw[9], misc[NMISC];
+};
+
+// a stage's dynamics Jacobians by column (column c's values at its rows
+// fz_rows(c), fu_rows(c)) and its feet's quadratization
+struct StageCols {
   float zv[N][4], uv[N][4];
   float hf[4][NHF], gf[4][NGF];
 };
 
-// the horizon-independent part of a block's shared memory
+// the latency variant's stage: also the dense Jacobians
+struct StageT {
+  float Fz[N * LD], Fu[N * LD];      // Fz = I + dt S, Fu = dt T
+  StageCols c;
+};
+
+// the horizon-independent part of a latency block's shared memory
 struct Fixed {
   float V[2][N * LD];        // Vxx, double-buffered (kept only if finite)
   float Y[N * LD];           // T1 = Vxx Fz, then Qxx + K'Quu K + P + P'
@@ -164,23 +194,160 @@ struct Fixed {
   float q[2 * N];            // Qx, Qu
   float linv[N];             // 1 / L[i][i]
   StageT st[2];              // stage k's in st[k % 2]
-  float refT[N], iw[9], misc[NMISC];
+  Consts k;
   float ccost[NALPHA];
 };
 
-// floats of the horizon-dependent part: K cache, kff, nominal Z and U,
-// references, foot masks, five candidate (Z, U)
-__host__ __device__ constexpr size_t per_h_floats(int H) {
+// the horizon-independent part of a batch block's shared memory: the
+// stage matrices by role (Batch below), then what the candidates leave
+// alone
+struct FixedB {
+  float A[2][N * LD];        // Vxx and Qxx, by turns
+  float LR[2][2][N * LDR];   // two pairs of gain systems (L, R), by stage
+  float G[N * LD];           // Quu, then Y
+  float Hq[N * LD];          // Qux
+  float Vx[2][N];
+  float q[2 * N];
+  float linv[N];
+  StageCols st;              // one stage: built after the last read of
+                             // the one before
+  Consts k;
+  float ccost[NALPHA];
+};
+
+// How a variant maps a scenario onto its block: NT threads; thread t owns
+// row t / CW and columns t % CW + CW m (m < N / CW) of every 24x24 result
+// (the batch variant's step 5: columns (t % CW) N / CW + m, in pairs);
+// threads 0..CT-1 of the warps that build a stage run its columns,
+// threads QF..QF+3 its feet; steps 2 and 3 unroll MU columns. BATCH: Fz,
+// Fu kept by column only, and Fu'Fu, Fu'Fz built with the stage (below).
+// Its shared memory by role:
+// V(cur) is Vxx, V(cur ^ 1) where its update goes, Qxx(cur) where Qxx is
+// built; stage k's T1 = Vxx Fz, T2 = Vxx Fu, L = Quu + reg I + state_reg
+// Fu'Fu (then its factor), R = [Qu | Qux + state_reg Fu'Fz], W = K'Quu,
+// P = K'Qux, Y = Qxx + K'Quu K + P + P'; st(k) holds stage k's columns,
+// Fz(k), Fu(k) its dense Jacobians.
+struct Latency {
+  static constexpr int NT = 192;        // 6 warps
+  static constexpr int CW = 8;
+  static constexpr int CT = 2 * N;
+  static constexpr int QF = 4 * WARP;
+  static constexpr int MU = 1;
+  static constexpr bool BATCH = false;
+  using F = Fixed;
+  static __device__ __forceinline__ float* V(F& s, int cur) {
+    return s.V[cur];
+  }
+  static __device__ __forceinline__ float* Qxx(F& s, int) { return s.Qxx; }
+  static __device__ __forceinline__ float* T1(F& s, int) { return s.Y; }
+  static __device__ __forceinline__ float* T2(F& s, int) { return s.W; }
+  static __device__ __forceinline__ float* L(F& s, int) { return s.L; }
+  static __device__ __forceinline__ float* R(F& s, int) { return s.R; }
+  static __device__ __forceinline__ float* W(F& s, int) { return s.W; }
+  static __device__ __forceinline__ float* P(F& s, int) { return s.P; }
+  static __device__ __forceinline__ float* Y(F& s) { return s.Y; }
+  static __device__ __forceinline__ float* Quu(F& s) { return s.Quu; }
+  static __device__ __forceinline__ float* Qux(F& s) { return s.Qux; }
+  static __device__ __forceinline__ StageCols& st(F& s, int k) {
+    return s.st[k % 2].c;
+  }
+  static __device__ __forceinline__ float* Fz(F& s, int k) {
+    return s.st[k % 2].Fz;
+  }
+  static __device__ __forceinline__ float* Fu(F& s, int k) {
+    return s.st[k % 2].Fu;
+  }
+  // the candidates' slots: after the horizon-dependent part
+  static __device__ __forceinline__ float* cand(F&, float* after, int) {
+    return after;
+  }
+};
+
+// Lifetimes within stage k (steps of `backward`): Vxx is read in 2 and
+// must outlive 7 (a rejected update keeps it); T1, T2 live 2-3; Qxx 3-6;
+// Quu 3-5; Qux 3-6; L, R 3-4; W, P 5-6; Y 6-7; the update is written in 7.
+// The batch variant's warps 1-2 build Fu'Fu and Fu'Fz of stage k - 1 in
+// step 4 of stage k, where stage k - 1's L and R go; step 3 of stage k - 1
+// adds the rest to them in place. So Qxx is built in the buffer the
+// update goes to, Y over Quu; the gain systems of stages k and k - 1 take
+// the two pairs LR[k % 2] and LR[(k - 1) % 2], stage k's W and P lie over
+// its L and R, its T1 and T2 over the other pair.
+struct Batch {
+  static constexpr int NT = 96;         // 3 warps
+  static constexpr int CW = 4;
+  static constexpr int CT = WARP;
+  static constexpr int QF = WARP;
+  static constexpr int MU = N / CW;
+  static constexpr bool BATCH = true;
+  static constexpr int MIN_BLOCKS = 4;  // an SM: registers <= 168
+  using F = FixedB;
+  static __device__ __forceinline__ float* V(F& s, int cur) {
+    return s.A[cur];
+  }
+  static __device__ __forceinline__ float* Qxx(F& s, int cur) {
+    return s.A[cur ^ 1];
+  }
+  static __device__ __forceinline__ float* T1(F& s, int k) {
+    return s.LR[(k & 1) ^ 1][0];
+  }
+  static __device__ __forceinline__ float* T2(F& s, int k) {
+    return s.LR[(k & 1) ^ 1][1];
+  }
+  static __device__ __forceinline__ float* L(F& s, int k) {
+    return s.LR[k & 1][0];
+  }
+  static __device__ __forceinline__ float* R(F& s, int k) {
+    return s.LR[k & 1][1];
+  }
+  static __device__ __forceinline__ float* W(F& s, int k) { return L(s, k); }
+  static __device__ __forceinline__ float* P(F& s, int k) { return R(s, k); }
+  static __device__ __forceinline__ float* Y(F& s) { return s.G; }
+  static __device__ __forceinline__ float* Quu(F& s) { return s.G; }
+  static __device__ __forceinline__ float* Qux(F& s) { return s.Hq; }
+  static __device__ __forceinline__ StageCols& st(F& s, int) { return s.st; }
+  static __device__ __forceinline__ float* Fz(F&, int) { return nullptr; }
+  static __device__ __forceinline__ float* Fu(F&, int) { return nullptr; }
+  // the candidates' slots: over the stage matrices (dead by then) where
+  // they fit, else after the horizon-dependent part
+  static __device__ __forceinline__ float* cand(F& s, float* after, int H);
+};
+
+// floats of the stage matrices the batch variant's candidates lie over
+constexpr size_t SCRATCH_B = 4 * N * LD + 4 * N * LDR;
+
+// floats of five candidate (Z, U)
+__host__ __device__ constexpr size_t cand_floats(int H) {
+  return (size_t)NALPHA * ((H + 1) * N + H * N);
+}
+
+// floats of the horizon-dependent part kept for the launch: K cache, kff,
+// nominal Z and U, references, foot masks
+__host__ __device__ constexpr size_t kept_floats(int H) {
   return (size_t)H * N * LDR + (size_t)H * N + (size_t)(H + 1) * N
-         + (size_t)H * N + (size_t)H * 2 * N + (size_t)H * 4
-         + (size_t)NALPHA * ((H + 1) * N + H * N);
+         + (size_t)H * N + (size_t)H * 2 * N + (size_t)H * 4;
 }
 
+// the batch variant's candidates lie over its stage scratch where they fit
+__host__ __device__ constexpr bool cand_over_scratch(int H) {
+  return cand_floats(H) <= SCRATCH_B;
+}
+
+__device__ __forceinline__ float* Batch::cand(F& s, float* after, int H) {
+  return cand_over_scratch(H) ? s.A[0] : after;
+}
+
+// a launch's dynamic shared memory a block, by variant
 __host__ __device__ constexpr size_t smem_bytes(int H) {
-  return sizeof(Fixed) + per_h_floats(H) * sizeof(float);
+  return sizeof(Fixed) + (kept_floats(H) + cand_floats(H)) * sizeof(float);
 }
 
-// per-foot Hessian entries in StageT::hf
+__host__ __device__ constexpr size_t smem_bytes_batch(int H) {
+  return sizeof(FixedB) + (kept_floats(H) + (cand_over_scratch(H)
+                                             ? 0 : cand_floats(H)))
+                          * sizeof(float);
+}
+
+// per-foot Hessian entries in StageCols::hf
 enum { H_PZ, H_FX, H_FY, H_FZ, H_W, E_PZFZ, E_FXFZ, E_FYFZ, E_FZWX, E_FZWY };
 
 struct Args {
@@ -200,8 +367,9 @@ struct Args {
 };
 
 // a block's shared memory, by part
+template <class Var>
 struct Ctx {
-  Fixed* s;
+  typename Var::F* s;
   float* Kc;     // (H, 24, LDR)
   float* kff;    // (H, 24)
   float* Zn;     // (H+1, 24) nominal
@@ -274,7 +442,7 @@ __device__ float dyn_row(const float* z, const float* u, const float* iwm,
 }
 
 // the per-foot complementarity cost of foot f at the stage (z, u)
-__device__ float foot_cost(const Fixed& s, const float* z, const float* u,
+__device__ float foot_cost(const Consts& s, const float* z, const float* u,
                            float fm, int f, float rho, float s_f) {
   const float c_fb = s.misc[0], c_slip = s.misc[1], c_cone = s.misc[2],
               c_mask = s.misc[3], mu = s.misc[52];
@@ -296,7 +464,7 @@ __device__ float foot_cost(const Fixed& s, const float* z, const float* u,
 // the flat-terrain quadratization of foot f: gradient adds into g.gf[f]
 // (z row 14 + 3f; u rows 3f, 3f + 1, 3f + 2, 12 + 3f, 13 + 3f), Hessian
 // entries into g.hf[f]
-__device__ void quad_foot(const Fixed& s, StageT& st, const float* z,
+__device__ void quad_foot(const Consts& s, StageCols& st, const float* z,
                           const float* u, float fm, int f, float rho,
                           float s_f) {
   const float c_fb = s.misc[0], c_slip = s.misc[1], c_cone = s.misc[2],
@@ -354,14 +522,14 @@ __device__ void quad_foot(const Fixed& s, StageT& st, const float* z,
 }
 
 // the stage Hessian's entries: Hxx (diagonal), Huu and Hux (u row i)
-__device__ __forceinline__ float hxx(const Fixed& s, const StageT& g, int i,
-                                     int j) {
+__device__ __forceinline__ float hxx(const Consts& s, const StageCols& g,
+                                     int i, int j) {
   if (i != j) return 0.0f;
   const float v = s.misc[4 + i];
   return (i >= 14 && (i - 14) % 3 == 0) ? v + g.hf[(i - 14) / 3][H_PZ] : v;
 }
 
-__device__ float huu(const Fixed& s, const StageT& g, int i, int j) {
+__device__ float huu(const Consts& s, const StageCols& g, int i, int j) {
   if (i == j) {
     const float v = s.misc[4 + N + i];
     if (i < 12) {
@@ -383,31 +551,32 @@ __device__ float huu(const Fixed& s, const StageT& g, int i, int j) {
   return 0.0f;
 }
 
-__device__ __forceinline__ float hux(const StageT& g, int i, int j) {
+__device__ __forceinline__ float hux(const StageCols& g, int i, int j) {
   return (i < 12 && i % 3 == 2 && j == 12 + i) ? g.hf[i / 3][E_PZFZ]
                                                 : 0.0f;
 }
 
 // the gradient's foot adds of z row i and u row i
-__device__ __forceinline__ float gx_add(const StageT& g, int i) {
+__device__ __forceinline__ float gx_add(const StageCols& g, int i) {
   return (i >= 14 && (i - 14) % 3 == 0) ? g.gf[(i - 14) / 3][0] : 0.0f;
 }
 
-__device__ __forceinline__ float gu_add(const StageT& g, int i) {
+__device__ __forceinline__ float gu_add(const StageCols& g, int i) {
   if (i < 12) return g.gf[i / 3][1 + i % 3];
   const int c = (i - 12) % 3;
   return c < 2 ? g.gf[(i - 12) / 3][4 + c] : 0.0f;
 }
 
-// warp 0: the Cholesky of s.L in registers (lane i holds row i), then
-// L L' X = s.R a lane per column, the stage guard, and the gains into K
+// warp 0: the Cholesky of L in registers (lane i holds row i), then
+// L L' X = R a lane per column, the stage guard, and the gains into K
 // (24 x LDR) and kff
-__device__ void gain_solve(Fixed& s, float* K, float* kff) {
+__device__ void gain_solve(float* L, const float* R, float* linv, float* K,
+                           float* kff) {
   const int i = threadIdx.x;
   float a[N];
 #pragma unroll
   for (int q = 0; q < N; ++q)
-    a[q] = (i < N && q <= i) ? s.L[i * LDR + q] : 0.0f;
+    a[q] = (i < N && q <= i) ? L[i * LDR + q] : 0.0f;
   float own_inv = 0.0f;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -429,8 +598,8 @@ __device__ void gain_solve(Fixed& s, float* K, float* kff) {
   if (i < N) {
 #pragma unroll
     for (int q = 0; q < N; ++q)
-      if (q <= i) s.L[i * LDR + q] = a[q];
-    s.linv[i] = own_inv;
+      if (q <= i) L[i * LDR + q] = a[q];
+    linv[i] = own_inv;
   }
   __syncwarp();
   K7_SPAN(4);
@@ -440,20 +609,20 @@ __device__ void gain_solve(Fixed& s, float* K, float* kff) {
   float x[N];
   bool ok = true;
 #pragma unroll
-  for (int r = 0; r < N; ++r) x[r] = s.R[r * LDR + col];
+  for (int r = 0; r < N; ++r) x[r] = R[r * LDR + col];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     __syncwarp();
-    x[j] *= s.linv[j];
+    x[j] *= linv[j];
 #pragma unroll
-    for (int r = j + 1; r < N; ++r) x[r] -= s.L[r * LDR + j] * x[j];
+    for (int r = j + 1; r < N; ++r) x[r] -= L[r * LDR + j] * x[j];
   }
 #pragma unroll
   for (int j = N - 1; j >= 0; --j) {
     __syncwarp();
-    x[j] *= s.linv[j];
+    x[j] *= linv[j];
 #pragma unroll
-    for (int r = 0; r < j; ++r) x[r] -= s.L[j * LDR + r] * x[j];
+    for (int r = 0; r < j; ++r) x[r] -= L[j * LDR + r] * x[j];
     ok = ok && finite(x[j]);
   }
   const bool okk = __all_sync(FULL, ok);
@@ -471,7 +640,7 @@ __device__ void gain_solve(Fixed& s, float* K, float* kff) {
 // eul <- om (1) and om <- pos, feet (Pm = Iw_inv skew(sum_f f_f), G_f =
 // -Iw_inv skew(f_f)); T's are v <- f_f (s_f / mass), om <- f_f (R_f = s_f
 // Iw_inv skew(feet_f - pos)) and feet <- foot velocities (1)
-__device__ float fz_entry(const Fixed& s, const float* z, const float* u,
+__device__ float fz_entry(const Consts& s, const float* z, const float* u,
                           int q, int c, float dt, float s_f) {
   float sv = 0.0f;
   if (q < 6) {
@@ -495,7 +664,7 @@ __device__ float fz_entry(const Fixed& s, const float* z, const float* u,
   return (q == c ? 1.0f : 0.0f) + dt * sv;
 }
 
-__device__ float fu_entry(const Fixed& s, const float* z, int q, int c,
+__device__ float fu_entry(const Consts& s, const float* z, int q, int c,
                           float dt, float s_f) {
   float tv = 0.0f;
   if (q >= 6 && q < 9) {
@@ -551,42 +720,120 @@ __device__ __forceinline__ int fu_rows(int c, int (&q)[4]) {
   return 4;
 }
 
-// warps 1..5: stage k's Jacobians, dense and by column (the rows that can
-// be nonzero, ascending), and its feet's quadratization, into st
-__device__ void stage_prep(const Ctx& c, const Args& p, StageT& st, int k,
+// a barrier of the warps after warp 0 of a batch block (named barrier 1;
+// __syncthreads is 0)
+static_assert(Batch::NT - WARP == 64, "prep_sync counts 64 threads");
+__device__ __forceinline__ void prep_sync() {
+  asm volatile("bar.sync 1, 64;" ::: "memory");
+}
+
+// (Fu'Fu)(pi, j) and (Fu'Fz)(pi, j) from stage st's columns: the sums over
+// the rows of Fu's column pi, ascending (fu_rows), of uv[pi][i] times the
+// entry of Fu, Fz at (that row, j), as the latency variant's step 3 sums
+// the dense products term for term; an entry off column j's rows
+// (fu_rows(j), fz_rows(j)) is the dense matrices' exact 0
+__device__ __forceinline__ void fu_products(const StageCols& st, int pi,
+                                            int j, float& ff, float& fz) {
+  ff = 0.0f;
+  fz = 0.0f;
+  if (pi >= 12) {              // row pi alone: Fu, Fz nonzero at (pi, pi)
+    const float v = st.uv[pi][0];
+    ff = fmaf(v, j == pi ? st.uv[j][0] : 0.0f, ff);
+    fz = fmaf(v, j == pi ? st.zv[j][3] : 0.0f, fz);
+    return;
+  }
+  // row 6 + pi % 3: Fu's at the forces of the same axis, Fz's at column
+  // 6 + pi % 3 (pos <- v)
+  const float v0 = st.uv[pi][0];
+  ff = fmaf(v0, (j < 12 && j % 3 == pi % 3) ? st.uv[j][0] : 0.0f, ff);
+  fz = fmaf(v0, j == 6 + pi % 3 ? st.zv[j][1] : 0.0f, fz);
+  // rows 9, 10, 11: Fu's at every force; Fz's at pos (j < 3), at the feet
+  // (j >= 12) and on the diagonal
+#pragma unroll
+  for (int i = 1; i < 4; ++i) {
+    const float v = st.uv[pi][i];
+    ff = fmaf(v, j < 12 ? st.uv[j][i] : 0.0f, ff);
+    const float zr = j < 3 ? st.zv[j][i]
+                   : j >= 12 ? st.zv[j][i - 1]
+                   : j == 8 + i ? st.zv[j][1] : 0.0f;
+    fz = fmaf(v, zr, fz);
+  }
+}
+
+// the values of column i of Fz (i < N) or of Fu (i - N) of the stage
+// (z, u) at the rows that can be nonzero, into st
+__device__ __forceinline__ void column_values(const Consts& s, StageCols& st,
+                                              const float* z, const float* u,
+                                              int i, float dt, float s_f) {
+  const bool x = i < N;
+  const int col = x ? i : i - N;
+  int q[4] = {0, 0, 0, 0};
+  const int n = x ? fz_rows(col, q) : fu_rows(col, q);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float v = 0.0f;
+    if (e < n) v = x ? fz_entry(s, z, u, q[e], col, dt, s_f)
+                     : fu_entry(s, z, q[e], col, dt, s_f);
+    (x ? st.zv : st.uv)[col][e] = v;
+  }
+}
+
+// the warps after warp 0: stage k's Jacobians by column (the rows that can
+// be nonzero, ascending) and its feet's quadratization into st(k); the
+// latency variant also its dense Fz, Fu; the batch variant then, after a
+// barrier of its two warps, also Fu'Fu and Fu'Fz (the dense products,
+// term for term as the latency variant's step 3 sums them) into stage k's
+// L and R
+template <class Var>
+__device__ void stage_prep(const Ctx<Var>& c, const Args& p, int k,
                            float rho) {
-  const Fixed& s = *c.s;
+  typename Var::F& f = *c.s;
+  const Consts& s = f.k;
+  StageCols& st = Var::st(f, k);
   const int t = threadIdx.x - WARP;
   const float dt = p.dt, s_f = p.s_f;
   const float* z = c.Zn + k * N;
   const float* u = c.Un + k * N;
-  for (int e = t; e < N * LD; e += NT - WARP) {
-    const int q = e / LD, col = e % LD;
-    st.Fz[e] = fz_entry(s, z, u, q, col, dt, s_f);
-    st.Fu[e] = fu_entry(s, z, q, col, dt, s_f);
-  }
-  if (t < 2 * N) {             // the values of column t of Fz, or of Fu
-    const bool x = t < N;
-    const int col = x ? t : t - N;
-    int q[4] = {0, 0, 0, 0};
-    const int n = x ? fz_rows(col, q) : fu_rows(col, q);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float v = 0.0f;
-      if (e < n) v = x ? fz_entry(s, z, u, q[e], col, dt, s_f)
-                       : fu_entry(s, z, q[e], col, dt, s_f);
-      (x ? st.zv : st.uv)[col][e] = v;
+  if constexpr (!Var::BATCH) {
+    float* Fz = Var::Fz(f, k);
+    float* Fu = Var::Fu(f, k);
+    for (int e = t; e < N * LD; e += Var::NT - WARP) {
+      const int q = e / LD, col = e % LD;
+      Fz[e] = fz_entry(s, z, u, q, col, dt, s_f);
+      Fu[e] = fu_entry(s, z, q, col, dt, s_f);
     }
-  } else if (t >= 4 * WARP && t < 4 * WARP + 4) {
-    const int f = t - 4 * WARP;
-    quad_foot(s, st, z, u, c.Fm[k * 4 + f], f, rho, s_f);
+  }
+  if (t < Var::CT) {
+    for (int i = t; i < 2 * N; i += Var::CT)
+      column_values(s, st, z, u, i, dt, s_f);
+  } else if (t >= Var::QF && t < Var::QF + 4) {
+    const int ft = t - Var::QF;
+    quad_foot(s, st, z, u, c.Fm[k * 4 + ft], ft, rho, s_f);
+  }
+  if constexpr (Var::BATCH) {
+    prep_sync();
+    float* FF = Var::L(f, k);
+    float* FZ = Var::R(f, k);
+    for (int e = t; e < N * N; e += Var::NT - WARP) {
+      const int pi = e / N, j = e % N;
+      float ff, fz;
+      fu_products(st, pi, j, ff, fz);
+      FF[pi * LDR + j] = ff;
+      FZ[pi * LDR + 1 + j] = fz;
+    }
   }
 }
 
 // one backward Riccati pass over the H stages at relaxation rho: the gains
 // into c.Kc, c.kff
-__device__ void backward(const Ctx& c, const Args& p, float rho) {
-  Fixed& s = *c.s;
+template <class Var>
+__device__ void backward(const Ctx<Var>& c, const Args& p, float rho) {
+  constexpr int NT = Var::NT, CW = Var::CW, NM = N / CW;
+  typename Var::F& f = *c.s;
+  const Consts& s = f.k;
+  float* const Y = Var::Y(f);
+  float* const Quu = Var::Quu(f);
+  float* const Qux = Var::Qux(f);
   const int t = threadIdx.x;
   const int pi = t / CW, pg = t % CW;       // this thread's row, columns
   const int H = p.H;
@@ -596,25 +843,31 @@ __device__ void backward(const Ctx& c, const Args& p, float rho) {
   // terminal value: hT = track_h on pos, eul, v; 0 elsewhere
   for (int e = t; e < N * LD; e += NT) {
     const int i = e / LD, j = e % LD;
-    s.V[0][e] = (i == j && i < 9) ? th[i] : 0.0f;
+    Var::V(f, 0)[e] = (i == j && i < 9) ? th[i] : 0.0f;
   }
-  if (t < N) s.Vx[0][t] = (t < 9 ? th[t] : 0.0f) * (c.Zn[H * N + t]
+  if (t < N) f.Vx[0][t] = (t < 9 ? th[t] : 0.0f) * (c.Zn[H * N + t]
                                                     - s.refT[t]);
-  if (t >= WARP) stage_prep(c, p, s.st[(H - 1) % 2], H - 1, rho);
+  if (t >= WARP) stage_prep<Var>(c, p, H - 1, rho);
   __syncthreads();
   K7_SPAN(1);
   for (int k = H - 1; k >= 0; --k) {
     const float* z = c.Zn + k * N;
     const float* u = c.Un + k * N;
     const float* ref = c.Ref + k * 2 * N;
-    const StageT& sg = s.st[k % 2];
-    // 2. T1 = Vxx Fz (into Y), T2 = Vxx Fu (into W); Qx = g_x + Fz'Vx,
-    // Qu = g_u + Fu'Vx. Every product is the dense one with its zero terms
-    // left out (the nonzeros of a column of Fz or Fu, ascending), so it
-    // rounds as the plain version's dense product does.
-    const float* V = s.V[cur];
-    const float* Vx = s.Vx[cur];
-#pragma unroll 1
+    const StageCols& sg = Var::st(f, k);
+    float* const T1 = Var::T1(f, k);
+    float* const T2 = Var::T2(f, k);
+    float* const L = Var::L(f, k);
+    float* const R = Var::R(f, k);
+    float* const W = Var::W(f, k);
+    float* const P = Var::P(f, k);
+    // 2. T1 = Vxx Fz, T2 = Vxx Fu; Qx = g_x + Fz'Vx, Qu = g_u + Fu'Vx.
+    // Every product is the dense one with its zero terms left out (the
+    // nonzeros of a column of Fz or Fu, ascending), so it rounds as the
+    // plain version's dense product does.
+    const float* V = Var::V(f, cur);
+    const float* Vx = f.Vx[cur];
+#pragma unroll (Var::MU)
     for (int m = 0; m < NM; ++m) {
       const int j = pg + CW * m;
       int qz[4], qu[4];
@@ -625,8 +878,8 @@ __device__ void backward(const Ctx& c, const Args& p, float rho) {
         if (e < nz) t1 = fmaf(V[qz[e] * LD + pi], sg.zv[j][e], t1);
         if (e < nu) t2 = fmaf(V[qu[e] * LD + pi], sg.uv[j][e], t2);
       }
-      s.Y[pi * LD + j] = t1;
-      s.W[pi * LD + j] = t2;
+      T1[pi * LD + j] = t1;
+      T2[pi * LD + j] = t2;
     }
     if (t >= NT - 2 * N) {
       const int i = t - (NT - 2 * N);
@@ -641,55 +894,90 @@ __device__ void backward(const Ctx& c, const Args& p, float rho) {
         if (e < n) qv = fmaf(v[e], Vx[q[e]], qv);
       const float g = x ? th[a] * (z[a] - ref[a]) + gx_add(sg, a)
                         : th[N + a] * (u[a] - ref[N + a]) + gu_add(sg, a);
-      s.q[i] = g + qv;
+      f.q[i] = g + qv;
     }
     __syncthreads();
     K7_SPAN(2);
 
     // 3. Qxx = Fz'T1 + Hxx, Quu = Fu'T2 + Huu, Qux = Fu'T1 + Hux;
     // L = Quu + reg I + state_reg Fu'Fu, R = [Qu | Qux + state_reg Fu'Fz]
+    // (the batch variant's Fu'Fu, Fu'Fz already in L, R)
+    float* Qxx = Var::Qxx(f, cur);
     int rz[4], ru[4];
     const int nz = fz_rows(pi, rz), nu = fu_rows(pi, ru);
-#pragma unroll 1
+#pragma unroll (Var::MU)
     for (int m = 0; m < NM; ++m) {
       const int j = pg + CW * m, ij = pi * LD + j;
       float qxx = 0.0f, quu = 0.0f, qux = 0.0f, ff = 0.0f, fz = 0.0f;
+      if constexpr (Var::BATCH) {
+        ff = L[pi * LDR + j];
+        fz = R[pi * LDR + 1 + j];
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (e < nz) qxx = fmaf(sg.zv[pi][e], s.Y[rz[e] * LD + j], qxx);
+        if (e < nz) qxx = fmaf(sg.zv[pi][e], T1[rz[e] * LD + j], qxx);
         if (e < nu) {
           const int q = ru[e] * LD + j;
           const float v = sg.uv[pi][e];
-          quu = fmaf(v, s.W[q], quu);
-          qux = fmaf(v, s.Y[q], qux);
-          ff = fmaf(v, sg.Fu[q], ff);
-          fz = fmaf(v, sg.Fz[q], fz);
+          quu = fmaf(v, T2[q], quu);
+          qux = fmaf(v, T1[q], qux);
+          if constexpr (!Var::BATCH) {
+            ff = fmaf(v, Var::Fu(f, k)[q], ff);
+            fz = fmaf(v, Var::Fz(f, k)[q], fz);
+          }
         }
       }
       qxx += hxx(s, sg, pi, j);
       quu += huu(s, sg, pi, j);
       qux += hux(sg, pi, j);
-      s.Qxx[ij] = qxx;
-      s.Quu[ij] = quu;
-      s.Qux[ij] = qux;
-      s.L[pi * LDR + j] = quu + ((pi == j ? p.reg : 0.0f)
-                                 + p.state_reg * ff);
-      s.R[pi * LDR + 1 + j] = qux + p.state_reg * fz;
+      Qxx[ij] = qxx;
+      Quu[ij] = quu;
+      Qux[ij] = qux;
+      L[pi * LDR + j] = quu + ((pi == j ? p.reg : 0.0f)
+                               + p.state_reg * ff);
+      R[pi * LDR + 1 + j] = qux + p.state_reg * fz;
     }
-    if (pg == 0) s.R[pi * LDR] = s.q[N + pi];
+    if (pg == 0) R[pi * LDR] = f.q[N + pi];
     __syncthreads();
     K7_SPAN(3);
 
     // 4. warp 0: the gains; beside it, the next stage's S, T rows and
     // quadratization
     float* K = c.Kc + k * N * LDR;
-    if (t < WARP) gain_solve(s, K, c.kff + k * N);
-    else if (k > 0) stage_prep(c, p, s.st[(k - 1) % 2], k - 1, rho);
+    if (t < WARP) gain_solve(L, R, f.linv, K, c.kff + k * N);
+    else if (k > 0) stage_prep<Var>(c, p, k - 1, rho);
     __syncthreads();
     K7_SPAN(5);
 
     // 5. the value update (unregularized Quu, Qux): W = K'Quu, P = K'Qux
-    {
+    if constexpr (Var::BATCH) {
+      // a thread's columns side by side, read and written in pairs
+      const int c0 = pg * NM;
+      float kq[NM], kp[NM];
+#pragma unroll
+      for (int m = 0; m < NM; ++m) kq[m] = kp[m] = 0.0f;
+#pragma unroll 4
+      for (int q = 0; q < N; ++q) {
+        const float kv = K[q * LDR + pi];
+        const float2* qa = reinterpret_cast<const float2*>(Quu + q * LD + c0);
+        const float2* qb = reinterpret_cast<const float2*>(Qux + q * LD + c0);
+#pragma unroll
+        for (int h = 0; h < NM / 2; ++h) {
+          const float2 a = qa[h], b2 = qb[h];
+          kq[2 * h] = fmaf(kv, a.x, kq[2 * h]);
+          kq[2 * h + 1] = fmaf(kv, a.y, kq[2 * h + 1]);
+          kp[2 * h] = fmaf(kv, b2.x, kp[2 * h]);
+          kp[2 * h + 1] = fmaf(kv, b2.y, kp[2 * h + 1]);
+        }
+      }
+      float2* wa = reinterpret_cast<float2*>(W + pi * LD + c0);
+      float2* pa = reinterpret_cast<float2*>(P + pi * LD + c0);
+#pragma unroll
+      for (int h = 0; h < NM / 2; ++h) {
+        wa[h] = make_float2(kq[2 * h], kq[2 * h + 1]);
+        pa[h] = make_float2(kp[2 * h], kp[2 * h + 1]);
+      }
+    } else {
       float kq[NM], kp[NM];
 #pragma unroll
       for (int m = 0; m < NM; ++m) kq[m] = kp[m] = 0.0f;
@@ -698,14 +986,14 @@ __device__ void backward(const Ctx& c, const Args& p, float rho) {
         const float kv = K[q * LDR + pi];
 #pragma unroll
         for (int m = 0; m < NM; ++m) {
-          kq[m] = fmaf(kv, s.Quu[q * LD + pg + CW * m], kq[m]);
-          kp[m] = fmaf(kv, s.Qux[q * LD + pg + CW * m], kp[m]);
+          kq[m] = fmaf(kv, Quu[q * LD + pg + CW * m], kq[m]);
+          kp[m] = fmaf(kv, Qux[q * LD + pg + CW * m], kp[m]);
         }
       }
 #pragma unroll
       for (int m = 0; m < NM; ++m) {
-        s.W[pi * LD + pg + CW * m] = kq[m];
-        s.P[pi * LD + pg + CW * m] = kp[m];
+        W[pi * LD + pg + CW * m] = kq[m];
+        P[pi * LD + pg + CW * m] = kp[m];
       }
     }
     __syncthreads();
@@ -720,7 +1008,7 @@ __device__ void backward(const Ctx& c, const Args& p, float rho) {
       for (int m = 0; m < NM; ++m) xs[m] = 0.0f;
 #pragma unroll 4
       for (int q = 0; q < N; ++q) {
-        const float w = s.W[pi * LD + q];
+        const float w = W[pi * LD + q];
 #pragma unroll
         for (int m = 0; m < NM; ++m)
           xs[m] = fmaf(w, K[q * LDR + pg + CW * m], xs[m]);
@@ -728,31 +1016,32 @@ __device__ void backward(const Ctx& c, const Args& p, float rho) {
 #pragma unroll
       for (int m = 0; m < NM; ++m) {
         const int j = pg + CW * m, ij = pi * LD + j;
-        s.Y[ij] = ((s.Qxx[ij] + xs[m]) + s.P[ij]) + s.P[j * LD + pi];
+        Y[ij] = ((Qxx[ij] + xs[m]) + P[ij]) + P[j * LD + pi];
       }
     }
-    const int vi = t - (NT - WARP);           // warp 5's lanes 0..23
+    const int vi = t - (NT - WARP);           // the last warp's lanes 0..23
     if (vi >= 0 && vi < N) {
       const float* kf = c.kff + k * N;
       float v1 = 0.0f, v2 = 0.0f, v3 = 0.0f;
       for (int q = 0; q < N; ++q) {
-        v1 = fmaf(s.W[vi * LD + q], kf[q], v1);
-        v2 = fmaf(K[q * LDR + vi], s.q[N + q], v2);
-        v3 = fmaf(s.Qux[q * LD + vi], kf[q], v3);
+        v1 = fmaf(W[vi * LD + q], kf[q], v1);
+        v2 = fmaf(K[q * LDR + vi], f.q[N + q], v2);
+        v3 = fmaf(Qux[q * LD + vi], kf[q], v3);
       }
-      const float vx2 = ((s.q[vi] + v1) + v2) + v3;
-      s.Vx[cur ^ 1][vi] = vx2;
+      const float vx2 = ((f.q[vi] + v1) + v2) + v3;
+      f.Vx[cur ^ 1][vi] = vx2;
       ok = finite(vx2);
     }
     __syncthreads();
     K7_SPAN(7);
 
     // 7. Vxx2 = (Y + Y') / 2, kept with Vx2 only if both are finite
+    float* Vn = Var::V(f, cur ^ 1);
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
       const int j = pg + CW * m;
-      const float v = 0.5f * (s.Y[pi * LD + j] + s.Y[j * LD + pi]);
-      s.V[cur ^ 1][pi * LD + j] = v;
+      const float v = 0.5f * (Y[pi * LD + j] + Y[j * LD + pi]);
+      Vn[pi * LD + j] = v;
       ok = ok && finite(v);
     }
     if (__syncthreads_and(ok)) cur ^= 1;
@@ -760,68 +1049,100 @@ __device__ void backward(const Ctx& c, const Args& p, float rho) {
   }
 }
 
-// the forward pass of candidate `a` (one warp, lane r < 24 owns row r) under
-// step alpha: its trajectory into its slot; returns its total cost (every
-// lane)
-__device__ float candidate(const Ctx& c, const Args& p, int a, float alpha,
-                           float rho) {
-  const Fixed& s = *c.s;
+// the forward passes of the NC candidates a[i] on one warp, interleaved
+// (lane r < 24 owns row r of each) under step ALPHAS[a[i]]: each trajectory
+// into its slot, each total cost into ccost[a[i]]
+template <class Var, int NC>
+__device__ void candidates(const Ctx<Var>& c, const Args& p,
+                           const int (&a)[NC], float rho) {
+  const Consts& s = c.s->k;
   const int r = threadIdx.x % WARP;
   const int rr = r < N ? r : 0;             // lanes 24..31 shadow lane 0
   const int H = p.H;
   const float* th = s.misc + 4;
-  float* Z = c.Zc + (size_t)a * (H + 1) * N;
-  float* U = c.Uc + (size_t)a * H * N;
-  float z = c.Zn[rr];
-  float cost = 0.0f;
+  float* Z[NC];
+  float* U[NC];
+  float alpha[NC], z[NC], cost[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    Z[i] = c.Zc + (size_t)a[i] * (H + 1) * N;
+    U[i] = c.Uc + (size_t)a[i] * H * N;
+    alpha[i] = ALPHAS[a[i]];
+    z[i] = c.Zn[rr];
+    cost[i] = 0.0f;
+  }
   for (int k = 0; k < H; ++k) {
     const float* K = c.Kc + k * N * LDR + rr * LDR;
-    const float dz = r < N ? z - c.Zn[k * N + r] : 0.0f;
-    float fb = 0.0f;
+    float dz[NC], fb[NC];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      dz[i] = r < N ? z[i] - c.Zn[k * N + r] : 0.0f;
+      fb[i] = 0.0f;
+    }
 #pragma unroll 8
-    for (int j = 0; j < N; ++j) fb = fmaf(K[j], __shfl_sync(FULL, dz, j), fb);
+    for (int j = 0; j < N; ++j) {
+      const float kj = K[j];
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+        fb[i] = fmaf(kj, __shfl_sync(FULL, dz[i], j), fb[i]);
+    }
     if (r < N) {
-      const float ur = (c.Un[k * N + r] + alpha * c.kff[k * N + r]) + fb;
-      Z[k * N + r] = z;
-      U[k * N + r] = ur;
-      const float dzr = z - c.Ref[k * 2 * N + r];
-      const float dur = ur - c.Ref[k * 2 * N + N + r];
-      cost += 0.5f * (th[r] * dzr * dzr + th[N + r] * dur * dur);
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const float ur = (c.Un[k * N + r] + alpha[i] * c.kff[k * N + r])
+                         + fb[i];
+        Z[i][k * N + r] = z[i];
+        U[i][k * N + r] = ur;
+        const float dzr = z[i] - c.Ref[k * 2 * N + r];
+        const float dur = ur - c.Ref[k * 2 * N + N + r];
+        cost[i] += 0.5f * (th[r] * dzr * dzr + th[N + r] * dur * dur);
+      }
     }
     __syncwarp();
-    if (r < N) z = dyn_row(Z + k * N, U + k * N, s.iw, r, p.dt, p.s_f,
-                           s.misc[53]);
+    if (r < N) {
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+        z[i] = dyn_row(Z[i] + k * N, U[i] + k * N, s.iw, r, p.dt, p.s_f,
+                       s.misc[53]);
+    }
   }
-  if (r < N) Z[H * N + r] = z;
-  // the feet's costs, off the rollout's chain: a (stage, foot) a lane
-  for (int e = r; e < 4 * H; e += WARP) {
-    const int k = e / 4, f = e % 4;
-    cost += foot_cost(s, Z + k * N, U + k * N, c.Fm[e], f, rho, p.s_f);
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    if (r < N) Z[i][H * N + r] = z[i];
+    // the feet's costs, off the rollout's chain: a (stage, foot) a lane
+    for (int e = r; e < 4 * H; e += WARP) {
+      const int k = e / 4, f = e % 4;
+      cost[i] += foot_cost(s, Z[i] + k * N, U[i] + k * N, c.Fm[e], f, rho,
+                           p.s_f);
+    }
+    if (r < 9) {
+      const float d = z[i] - s.refT[r];
+      cost[i] += 0.5f * th[r] * d * d;
+    }
+    const float total = warp_sum(cost[i]);
+    if (r == 0) c.s->ccost[a[i]] = total;
   }
-  if (r < 9) {
-    const float d = z - s.refT[r];
-    cost += 0.5f * th[r] * d * d;
-  }
-  return warp_sum(cost);
 }
 
-__global__ void __launch_bounds__(NT)
-ci_sweeps(Args p) {
-  extern __shared__ float4 smem4[];
+// the whole launch for scenario blockIdx.x, its shared memory at `base`
+template <class Var>
+__device__ __forceinline__ void sweeps(const Args& p, float* base) {
+  constexpr int NT = Var::NT, NW = NT / WARP;
+  constexpr int NC = (NALPHA + NW - 1) / NW;   // candidates a warp
   const int H = p.H;
   const int b = blockIdx.x;
   const int t = threadIdx.x;
-  Ctx c;
-  c.s = reinterpret_cast<Fixed*>(smem4);
-  c.Kc = reinterpret_cast<float*>(smem4) + sizeof(Fixed) / sizeof(float);
+  Ctx<Var> c;
+  c.s = reinterpret_cast<typename Var::F*>(base);
+  c.Kc = base + sizeof(typename Var::F) / sizeof(float);
   c.kff = c.Kc + H * N * LDR;
   c.Zn = c.kff + H * N;
   c.Un = c.Zn + (H + 1) * N;
   c.Ref = c.Un + H * N;
   c.Fm = c.Ref + H * 2 * N;
-  c.Zc = c.Fm + H * 4;
+  c.Zc = Var::cand(*c.s, c.Fm + H * 4, H);
   c.Uc = c.Zc + NALPHA * (H + 1) * N;
-  Fixed& s = *c.s;
+  Consts& s = c.s->k;
   K7_SPANS_BEGIN
   for (int e = t; e < NMISC; e += NT) s.misc[e] = p.misc[e];
   if (t < 9) s.iw[t] = p.iw_inv[(size_t)b * 9 + t];
@@ -854,10 +1175,18 @@ ci_sweeps(Args p) {
     const float frac = p.iters > 1 ? (float)it / ((float)p.iters - 1.0f)
                                    : 1.0f;
     const float rho = fmaxf(expf(lr0 + frac * (lrm - lr0)), p.rho_min);
-    backward(c, p, rho);
+    backward<Var>(c, p, rho);
+    // candidates w, w + NW, ... on warp w, interleaved (where the last
+    // round leaves warp w none, it runs a copy of its first: the same
+    // values into the same slot; skipping that round, by a one-candidate
+    // call or by predication, made the batch variant 3-7 % slower on an
+    // H100)
     if (w < NALPHA) {
-      const float cw = candidate(c, p, w, ALPHAS[w], rho);
-      if (t % WARP == 0) s.ccost[w] = cw;
+      int a[NC];
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+        a[i] = w + i * NW < NALPHA ? w + i * NW : w;
+      candidates<Var, NC>(c, p, a, rho);
     }
     __syncthreads();
     K7_SPAN(9);
@@ -865,7 +1194,7 @@ ci_sweeps(Args p) {
     int best = NALPHA - 1;
     c_best = INFINITY;
     for (int a = 0; a < NALPHA; ++a) {
-      const float ca = finite(s.ccost[a]) ? s.ccost[a] : INFINITY;
+      const float ca = finite(c.s->ccost[a]) ? c.s->ccost[a] : INFINITY;
       if (ca < c_best) {
         c_best = ca;
         best = a;
@@ -886,18 +1215,91 @@ ci_sweeps(Args p) {
   K7_SPANS_END
 }
 
+__global__ void __launch_bounds__(Latency::NT)
+ci_sweeps(Args p) {
+  extern __shared__ float4 smem4[];
+  sweeps<Latency>(p, reinterpret_cast<float*>(smem4));
+}
+
+__global__ void __launch_bounds__(Batch::NT, Batch::MIN_BLOCKS)
+ci_sweeps_batch(Args p) {
+  extern __shared__ float4 smem4[];
+  sweeps<Batch>(p, reinterpret_cast<float*>(smem4));
+}
+
 }  // namespace
 
-// The largest horizon whose launch fits a block's shared memory.
+// The largest horizon whose launch fits a block's shared memory (the
+// latency variant's, the larger).
 extern "C" int ci_sweeps_max_h() {
   int H = 0;
   while (smem_bytes(H + 1) <= SMEM_MAX) ++H;
   return H;
 }
 
-// The whole sweep loop for B scenarios with horizon H on `stream`; see the
-// header for the layouts. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for H outside 1..ci_sweeps_max_h()).
+namespace {
+
+// variant 0: ci_sweeps (latency), 1: ci_sweeps_batch
+const void* kernel_of(int batch) {
+  return batch ? reinterpret_cast<const void*>(ci_sweeps_batch)
+               : reinterpret_cast<const void*>(ci_sweeps);
+}
+
+size_t smem_of(int batch, int H) {
+  return batch ? smem_bytes_batch(H) : smem_bytes(H);
+}
+
+// Raise a variant's dynamic shared-memory limit to the block's share less
+// the kernel's static shared memory, once per device, not at every launch
+// (a host call on a host-bound path); the limit into *limit.
+int smem_limit(int batch, size_t* limit) {
+  static size_t cache[2][MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (cache[batch][device] == 0) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel_of(batch));
+    if (err != cudaSuccess) return (int)err;
+    const size_t dyn = SMEM_MAX - attr.sharedSizeBytes;
+    err = cudaFuncSetAttribute(kernel_of(batch),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)dyn);
+    if (err != cudaSuccess) return (int)err;
+    cache[batch][device] = dyn;
+  }
+  *limit = cache[batch][device];
+  return 0;
+}
+
+int launch(int batch, const float* z0, const float* uh0, const float* ref_zu,
+           const float* refT, const float* f_mask, const float* rho0,
+           const float* iw_inv, const float* misc, float* U, float* Z,
+           float* cost, int B, int H, int iters, float dt, float s_f,
+           float rho_min, float reg, float state_reg, void* stream) {
+  if (B == 0) return 0;
+  size_t limit = 0;
+  const int err = smem_limit(batch, &limit);
+  if (err != 0) return err;
+  if (H < 1 || smem_of(batch, H) > limit) return (int)cudaErrorInvalidValue;
+  Args p{z0, uh0, ref_zu, refT, f_mask, rho0, iw_inv, misc, U, Z, cost, H,
+         iters, dt, s_f, rho_min, reg, state_reg};
+  if (batch)
+    ci_sweeps_batch<<<B, Batch::NT, smem_bytes_batch(H),
+                      (cudaStream_t)stream>>>(p);
+  else
+    ci_sweeps<<<B, Latency::NT, smem_bytes(H), (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The whole sweep loop for B scenarios with horizon H on `stream`, by the
+// latency variant (ci_sweeps_launch) or the batch variant
+// (ci_sweeps_batch_launch); see the header for the layouts. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for H outside
+// 1..ci_sweeps_max_h()).
 extern "C" int ci_sweeps_launch(const float* z0, const float* uh0,
                                 const float* ref_zu, const float* refT,
                                 const float* f_mask, const float* rho0,
@@ -905,30 +1307,31 @@ extern "C" int ci_sweeps_launch(const float* z0, const float* uh0,
                                 float* U, float* Z, float* cost, int B, int H,
                                 int iters, float dt, float s_f, float rho_min,
                                 float reg, float state_reg, void* stream) {
-  if (B == 0) return 0;
-  // raise the dynamic shared-memory limit to the block's share less the
-  // kernel's static shared memory once per device, not at every launch (a
-  // host call on a host-bound path)
-  static size_t limit[MAX_DEVICES] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (limit[device] == 0) {
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, ci_sweeps);
-    if (err != cudaSuccess) return (int)err;
-    const size_t dyn = SMEM_MAX - attr.sharedSizeBytes;
-    err = cudaFuncSetAttribute(ci_sweeps,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)dyn);
-    if (err != cudaSuccess) return (int)err;
-    limit[device] = dyn;
-  }
-  if (H < 1 || smem_bytes(H) > limit[device])
-    return (int)cudaErrorInvalidValue;
-  Args p{z0, uh0, ref_zu, refT, f_mask, rho0, iw_inv, misc, U, Z, cost, H,
-         iters, dt, s_f, rho_min, reg, state_reg};
-  ci_sweeps<<<B, NT, smem_bytes(H), (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch(0, z0, uh0, ref_zu, refT, f_mask, rho0, iw_inv, misc, U, Z,
+                cost, B, H, iters, dt, s_f, rho_min, reg, state_reg, stream);
+}
+
+extern "C" int ci_sweeps_batch_launch(const float* z0, const float* uh0,
+                                      const float* ref_zu, const float* refT,
+                                      const float* f_mask, const float* rho0,
+                                      const float* iw_inv, const float* misc,
+                                      float* U, float* Z, float* cost, int B,
+                                      int H, int iters, float dt, float s_f,
+                                      float rho_min, float reg,
+                                      float state_reg, void* stream) {
+  return launch(1, z0, uh0, ref_zu, refT, f_mask, rho0, iw_inv, misc, U, Z,
+                cost, B, H, iters, dt, s_f, rho_min, reg, state_reg, stream);
+}
+
+// The blocks (scenarios) of a variant (batch 0 or 1) resident on one SM of
+// the current device at horizon H, into *blocks (0 where H does not fit).
+extern "C" int ci_sweeps_blocks_per_sm(int H, int batch, int* blocks) {
+  size_t limit = 0;
+  const int err = smem_limit(batch, &limit);
+  if (err != 0) return err;
+  *blocks = 0;
+  if (H < 1 || smem_of(batch, H) > limit) return 0;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel_of(batch), batch ? Batch::NT : Latency::NT,
+      smem_of(batch, H));
 }

@@ -19,7 +19,15 @@ cost (B,)).
 
 The kernel keeps a scenario's whole problem in its block's shared memory,
 so it serves 1 <= H <= `max_horizon()` (50 on an H100); the dispatch
-(`mpc/ci_mpc.ci_pallas_available`) sends it H <= 12.
+(`mpc/ci_mpc.ci_pallas_available`) sends it H <= 12. It has two variants
+that compute the same numbers bit for bit and map a scenario onto the SM
+differently (csrc/ci_sweeps.cu): the latency variant, a block of six warps
+a scenario, two an SM at H=10; and the batch variant, three warps a
+scenario, four an SM. `ci_sweeps_cuda` launches the batch variant only
+where the batch is past the latency variant's one wave (its resident
+blocks an SM times the SMs) and the batch variant holds more scenarios an
+SM at that H (`residency`); `cuda_build.LAUNCHES` counts every launch
+under "ci_sweeps" and the batch variant's also under "ci_sweeps_batch".
 """
 
 import ctypes
@@ -54,11 +62,14 @@ def ci_sweeps_plain(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass,
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = cuda_build.load("ci_sweeps")
-    lib.ci_sweeps_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
-        + [ctypes.c_void_p])
-    lib.ci_sweeps_launch.restype = ctypes.c_int
+    for entry in (lib.ci_sweeps_launch, lib.ci_sweeps_batch_launch):
+        entry.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                          + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+        entry.restype = ctypes.c_int
     lib.ci_sweeps_max_h.restype = ctypes.c_int
+    lib.ci_sweeps_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+    lib.ci_sweeps_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -67,15 +78,34 @@ def max_horizon():
     return _lib().ci_sweeps_max_h()
 
 
-@trace.spanned(trace.K7)
-def ci_sweeps_cuda(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass,
-                   Iw_inv, *, iters, dt, s_f, rho_min, reg, state_reg):
-    """The sweep loop: kernel K7 on CUDA tensors, the plain version on CPU
-    tensors (module docstring)."""
-    if z0.device.type == "cpu":
-        return ci_sweeps_plain(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec,
-                               mu, mass, Iw_inv, iters=iters, dt=dt, s_f=s_f,
-                               rho_min=rho_min, reg=reg, state_reg=state_reg)
+@functools.lru_cache(maxsize=None)
+def residency(index, H):
+    """(latency variant's, batch variant's) resident blocks (scenarios) an
+    SM at horizon H on CUDA device `index`, and the device's SMs: the
+    occupancy API's readings, once per (device, H)."""
+    lib = _lib()
+    blocks = ctypes.c_int()
+    per_sm = []
+    with torch.cuda.device(index):
+        for batch in (0, 1):
+            cuda_build.check(lib.ci_sweeps_blocks_per_sm(
+                H, batch, ctypes.byref(blocks)), "ci_sweeps occupancy")
+            per_sm.append(blocks.value)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return per_sm[0], per_sm[1], sms
+
+
+def batch_variant_wins(B, latency_per_sm, batch_per_sm, sms):
+    """Whether a launch of B scenarios takes the batch variant: B is past
+    the latency variant's one wave and the batch variant holds more
+    scenarios an SM."""
+    return B > latency_per_sm * sms and batch_per_sm > latency_per_sm
+
+
+def _prepare(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass, Iw_inv,
+             *, iters, dt, s_f, rho_min, reg, state_reg):
+    """The checked arguments of a launch, as the C entries take them after
+    their outputs (module docstring)."""
     B, H = Uh0.shape[0], Uh0.shape[1]
     dev = z0.device
     rho0 = torch.as_tensor(rho0, dtype=z0.dtype, device=dev).expand(B)
@@ -104,15 +134,45 @@ def ci_sweeps_cuda(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass,
         t.contiguous() for t in (z0, Uh0, ref_zu, refT, f_mask, rho0,
                                  Iw_inv))
     misc = torch.cat([wts_vec, mu, mass])
+    return ((z0, Uh0, ref_zu, refT, f_mask, rho0, Iw_inv, misc),
+            (B, H, int(iters)),
+            (float(dt), float(s_f), float(rho_min), float(reg),
+             float(state_reg)))
+
+
+def _run(entry, prepared):
+    """Launch the C entry `entry` (either variant's) on `_prepare`'s
+    arguments; returns (U, Z, cost)."""
+    tensors, ints, floats = prepared
+    B, H = ints[:2]
+    dev = tensors[0].device
     U = torch.empty((B, H, NZ), dtype=torch.float32, device=dev)
     Z = torch.empty((B, H + 1, NZ), dtype=torch.float32, device=dev)
     cost = torch.empty((B,), dtype=torch.float32, device=dev)
-    err = _lib().ci_sweeps_launch(
-        z0.data_ptr(), Uh0.data_ptr(), ref_zu.data_ptr(), refT.data_ptr(),
-        f_mask.data_ptr(), rho0.data_ptr(), Iw_inv.data_ptr(),
-        misc.data_ptr(), U.data_ptr(), Z.data_ptr(), cost.data_ptr(), B, H,
-        int(iters), float(dt), float(s_f), float(rho_min), float(reg),
-        float(state_reg), torch.cuda.current_stream(dev).cuda_stream)
+    err = entry(*(t.data_ptr() for t in tensors + (U, Z, cost)), *ints,
+                *floats, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "ci_sweeps")
-    cuda_build.LAUNCHES["ci_sweeps"] += 1
     return U, Z, cost
+
+
+@trace.spanned(trace.K7)
+def ci_sweeps_cuda(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu, mass,
+                   Iw_inv, *, iters, dt, s_f, rho_min, reg, state_reg):
+    """The sweep loop: kernel K7 on CUDA tensors, the plain version on CPU
+    tensors (module docstring)."""
+    if z0.device.type == "cpu":
+        return ci_sweeps_plain(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec,
+                               mu, mass, Iw_inv, iters=iters, dt=dt, s_f=s_f,
+                               rho_min=rho_min, reg=reg, state_reg=state_reg)
+    prepared = _prepare(z0, Uh0, ref_zu, refT, f_mask, rho0, wts_vec, mu,
+                        mass, Iw_inv, iters=iters, dt=dt, s_f=s_f,
+                        rho_min=rho_min, reg=reg, state_reg=state_reg)
+    B, H = prepared[1][:2]
+    batch = batch_variant_wins(B, *residency(z0.device.index, H))
+    lib = _lib()
+    out = _run(lib.ci_sweeps_batch_launch if batch else lib.ci_sweeps_launch,
+               prepared)
+    cuda_build.LAUNCHES["ci_sweeps"] += 1
+    if batch:
+        cuda_build.LAUNCHES["ci_sweeps_batch"] += 1
+    return out

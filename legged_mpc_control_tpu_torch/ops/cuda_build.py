@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> launches: riccati_ipm (K1), substep_chain (K2),
 # substep_chain_kf1 (K3), chol_factor (K4), chol_solve (K5),
-# chol_solve_multi (K6), ci_sweeps (K7)
+# chol_solve_multi (K6), ci_sweeps (K7; its batch variant also under
+# ci_sweeps_batch)
 LAUNCHES = collections.Counter()
 
 

@@ -401,3 +401,21 @@ def test_dispatch(refs):
         tci.ci_solve_batched(*args, f_mask=t(FMASK).float(), wall=wall32,
                              backend="fused", **kw)
     assert sum(cuda_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("B,latency_per_sm,batch_per_sm,want", [
+    (1, 2, 4, False),         # the B=1 policy
+    (256, 2, 4, False),       # the flat loop at B=256: within one wave
+    (264, 2, 4, False),       # exactly one wave of 2 x 132
+    (265, 2, 4, True),        # past it
+    (4096, 2, 4, True),       # the benchmark's CI cell
+    (4096, 2, 3, True),       # any gain in residency
+    (4096, 2, 2, False),      # no more scenarios an SM: the latency variant
+    (4096, 1, 1, False),
+])
+def test_k7_variant_rule(B, latency_per_sm, batch_per_sm, want):
+    """K7's wrapper takes its batch variant only past the latency
+    variant's one wave (its resident blocks an SM x 132 SMs) and only
+    where the batch variant holds more scenarios an SM."""
+    assert ci_kernel.batch_variant_wins(B, latency_per_sm, batch_per_sm,
+                                        132) is want

@@ -581,14 +581,14 @@ def _ci_walked(dev, batch, terrain=None, ticks=6, iters=24, horizon=10):
 _CI_ARGS = {}
 
 
-def _ci_sweeps_args(dev, horizon):
-    """K7's arguments in the solve of a walking CI tick, B=64 (cached by
-    horizon)."""
+def _ci_sweeps_args(dev, horizon, batch=64):
+    """K7's arguments in the solve of a walking CI tick, B=64 or `batch`
+    (cached by horizon and batch)."""
     from legged_mpc_control_tpu_torch.mpc import ci_mpc
     from legged_mpc_control_tpu_torch.ops import ci_kernel
 
-    if horizon not in _CI_ARGS:
-        loop, lci, params, stand, walk = _ci_walked(dev, 64,
+    if (horizon, batch) not in _CI_ARGS:
+        loop, lci, params, stand, walk = _ci_walked(dev, batch,
                                                     horizon=horizon)
         seen = {}
         kernel = ci_kernel.ci_sweeps_cuda
@@ -602,8 +602,8 @@ def _ci_sweeps_args(dev, horizon):
                                               0.1)
         finally:
             ci_mpc.ci_kernel.ci_sweeps_cuda = kernel
-        _CI_ARGS[horizon] = seen["args"]
-    return _CI_ARGS[horizon]
+        _CI_ARGS[horizon, batch] = seen["args"]
+    return _CI_ARGS[horizon, batch]
 
 
 def _ci_outside(got, want):
@@ -662,6 +662,72 @@ def test_ci_sweeps_all_nonfinite_keeps_nominal(dev):
     out = _ci_outside((Uk[rest], Zk[rest], ck[rest]),
                       (Up[rest], Zp[rest], cp[rest]))
     assert int(out.sum()) <= 0.01 * 63
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+# past one wave of the latency variant (264 scenarios on an H100 at H=10)
+K7_BATCH = 1024
+
+
+@pytest.mark.parametrize("case", ["h10", "h12", "nonfinite_h10"])
+def test_ci_sweeps_batch_equals_latency(dev, case):
+    """K7's batch variant bit for bit its latency variant (U, Z and cost),
+    both launched through their C entries on the solve of a walking CI tick
+    of B=1024, at H=10 and H=12, and the batch variant against the plain
+    version with the tolerances of tests/test_ci_fused.py for 99 % of the
+    scenarios; the non-finite case puts a NaN into scenario 1's input
+    reference at stage 5, and both keep its nominal with cost inf."""
+    from legged_mpc_control_tpu_torch.ops import ci_kernel
+
+    horizon = 12 if case == "h12" else 10
+    a, kw = _ci_sweeps_args(dev, horizon, K7_BATCH)
+    if case.startswith("nonfinite"):
+        ref_zu = a[2].clone()
+        ref_zu[1, 5, 24] = float("nan")
+        a = a[:2] + (ref_zu,) + a[3:]
+    prepared = ci_kernel._prepare(*a, **kw)
+    lib = ci_kernel._lib()
+    want = ci_kernel._run(lib.ci_sweeps_launch, prepared)
+    got = ci_kernel._run(lib.ci_sweeps_batch_launch, prepared)
+    for x, y in zip(got, want):
+        assert torch.equal(_bits(x), _bits(y))
+    U, Z, cost = got
+    plain = ci_kernel.ci_sweeps_plain(*a, **kw)
+    rest = torch.arange(K7_BATCH, device=dev)
+    if case.startswith("nonfinite"):
+        assert torch.equal(U[1], a[1][1]) and bool(torch.isinf(cost[1]))
+        assert torch.equal(plain[0][1], a[1][1])
+        rest = rest[rest != 1]
+        assert bool(torch.isfinite(cost[rest]).all())
+    else:
+        assert bool(torch.isfinite(U).all()) and bool(
+            torch.isfinite(cost).all())
+    out = _ci_outside(tuple(x[rest] for x in got),
+                      tuple(x[rest] for x in plain))
+    assert int(out.sum()) <= 0.01 * len(rest)
+
+
+def test_ci_sweeps_dispatch_batch_variant(dev):
+    """`ci_sweeps_cuda` takes the batch variant past the latency variant's
+    one wave (B=1024) and the latency variant at B=64; both count one K7
+    launch, the first also one under "ci_sweeps_batch"."""
+    from legged_mpc_control_tpu_torch.ops import ci_kernel
+
+    a, kw = _ci_sweeps_args(dev, 10, K7_BATCH)
+    lat, bat, sms = ci_kernel.residency(dev.index, 10)
+    assert bat > lat and 64 <= lat * sms < K7_BATCH
+    for batch, batch_launches in ((K7_BATCH, 1), (64, 0)):
+        sub = tuple(x[:batch] if torch.is_tensor(x) and x.dim() and
+                    x.shape[0] == K7_BATCH else x for x in a)
+        before = dict(cuda_build.LAUNCHES)
+        ci_kernel.ci_sweeps_cuda(*sub, **kw)
+        assert (cuda_build.LAUNCHES["ci_sweeps"]
+                == before.get("ci_sweeps", 0) + 1)
+        assert (cuda_build.LAUNCHES["ci_sweeps_batch"]
+                == before.get("ci_sweeps_batch", 0) + batch_launches)
 
 
 def test_ci_sweeps_refuses_horizon_above_cap(dev):

@@ -6,7 +6,8 @@ The sources are built with g++ under a small emulation of the CUDA
 constructs they use: a block's threads are fibers (ucontext) run in
 turn on one host thread, `__syncthreads` a barrier of the block and
 `__syncwarp` one of the warp (a thread that returns drops out of both, as
-an exited thread does on the card), `__all_sync`, `__shfl_xor_sync` and
+an exited thread does on the card), a named barrier (`bar.sync id, n`)
+one of the first n threads to arrive, `__all_sync`, `__shfl_xor_sync` and
 `__shfl_sync` an exchange through memory within the warp (the shuffles
 through two buffers in turn, one barrier each), `__syncthreads_and` one through memory within the
 block, `__shared__` a static (a kernel's dynamic `extern __shared__` array
@@ -22,7 +23,9 @@ filter and Feedback brackets with equal contacts, K4, K5 and K6 relative
 (tests/test_ci_fused.py:49-56). K7 runs a block of 192 threads a
 scenario; its cases are the walked-in tick at H=10 and at H=12 (the
 largest horizon the dispatch sends it), and a scenario whose candidates
-all cost NaN. Skipped where there is no g++ with C++20."""
+all cost NaN; its batch variant (96 threads a scenario) runs the
+walked-in tick at H=10 and 12 against plain and against the latency
+variant bit for bit. Skipped where there is no g++ with C++20."""
 
 import ctypes
 import shutil
@@ -72,6 +75,7 @@ PRELUDE = r"""
 #define __grid_constant__
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct double2 { double x, y; };
 struct Dim { int x; };
 Dim threadIdx, blockIdx, blockDim;      // the running thread's
@@ -118,6 +122,12 @@ static int g_pred[1024];
 inline Barrier& warp_bar() { return g_warp_bar[threadIdx.x / 32]; }
 inline void __syncwarp() { warp_bar().wait(); }
 inline void __syncthreads() { g_bar.wait(); }
+// named barriers (bar.sync id, n): the first arrival sets the count
+static Barrier g_named[16];
+inline void named_sync(int id, int n) {
+  if (g_named[id].arrived == 0) g_named[id].n = n;
+  g_named[id].wait();
+}
 inline int __syncthreads_and(int p) {
   g_pred[threadIdx.x] = p;
   g_bar.wait();
@@ -170,6 +180,7 @@ static void run_blocks(int B, int T, std::function<void()> body) {
   for (int b = 0; b < B; ++b) {
     blockIdx.x = b;
     g_bar = Barrier{T};
+    for (auto& nb : g_named) nb = Barrier{};
     g_warp_bar.assign((T + 31) / 32, Barrier{});
     for (int w = 0; w * 32 < T; ++w)
       g_warp_bar[w].n = T - 32 * w < 32 ? T - 32 * w : 32;
@@ -207,7 +218,16 @@ extern "C" void ci_sweeps_emu(const float* z0, const float* uh0,
     float rho_min, float reg, float state_reg) {
   Args p{z0, uh0, ref_zu, refT, f_mask, rho0, iw_inv, misc, U, Z, cost, H,
          iters, dt, s_f, rho_min, reg, state_reg};
-  run_blocks(B, NT, [&]() { ci_sweeps(p); });
+  run_blocks(B, Latency::NT, [&]() { ci_sweeps(p); });
+}
+extern "C" void ci_sweeps_batch_emu(const float* z0, const float* uh0,
+    const float* ref_zu, const float* refT, const float* f_mask,
+    const float* rho0, const float* iw_inv, const float* misc, float* U,
+    float* Z, float* cost, int B, int H, int iters, float dt, float s_f,
+    float rho_min, float reg, float state_reg) {
+  Args p{z0, uh0, ref_zu, refT, f_mask, rho0, iw_inv, misc, U, Z, cost, H,
+         iters, dt, s_f, rho_min, reg, state_reg};
+  run_blocks(B, Batch::NT, [&]() { ci_sweeps_batch(p); });
 }
 """
 
@@ -317,9 +337,12 @@ def libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("emulated")
     # the kernels' dynamic (extern) shared arrays: static buffers here
     ci = _emulated("ci_sweeps", CI_LAUNCH, out, edits=(
-        ("extern __shared__ float4 smem4[];", "static float4 smem4[8192];"),))
-    ci.ci_sweeps_emu.argtypes = ([ctypes.c_void_p] * 11
-                                 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5)
+        ("extern __shared__ float4 smem4[];", "static float4 smem4[8192];"),
+        ('asm volatile("bar.sync 1, 64;" ::: "memory");',
+         "named_sync(1, 64);")))
+    for entry in (ci.ci_sweeps_emu, ci.ci_sweeps_batch_emu):
+        entry.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                          + [ctypes.c_float] * 5)
     chol = _emulated("chol_lanes", CHOL_LAUNCH, out, edits=(
         ("extern __shared__ float4 sm4[];", "static float4 sm4[8192];"),))
     chol.chol_solve_emu.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
@@ -459,13 +482,14 @@ def ci_tick4():
     return _ci_tick_args(4)
 
 
-def _k7_emulated(ci, a, kw):
+def _k7_emulated(ci, a, kw, batch=False):
+    """K7's latency variant emulated, or its batch variant."""
     z0, Uh0, ref_zu, refT, f_mask, rho0, wvec, mu, mass, Iw_inv = a
     B, H = Uh0.shape[:2]
     misc = torch.cat([wvec, mu.reshape(1), mass.reshape(1)])
     U, Z = torch.empty((B, H, 24)), torch.empty((B, H + 1, 24))
     cost = torch.empty(B)
-    ci.ci_sweeps_emu(
+    (ci.ci_sweeps_batch_emu if batch else ci.ci_sweeps_emu)(
         z0.data_ptr(), Uh0.data_ptr(), ref_zu.data_ptr(), refT.data_ptr(),
         f_mask.data_ptr(), rho0.data_ptr(), Iw_inv.data_ptr(),
         misc.data_ptr(), U.data_ptr(), Z.data_ptr(), cost.data_ptr(), B, H,
@@ -489,10 +513,10 @@ def _k7_errors(got, want):
 K7_TOL = (("forces", 0.5), ("foot_vel", 2e-2), ("Z", 2e-3), ("cost", 2e-3))
 
 
-def _k7_against_plain(ci, a, kw):
+def _k7_against_plain(ci, a, kw, batch=False):
     """K7 emulated against its plain version in float32 (the bracket, every
-    scenario) and float64 (printed)."""
-    got = _k7_emulated(ci, a, kw)
+    scenario) and float64 (printed); returns its result."""
+    got = _k7_emulated(ci, a, kw, batch)
     err = _k7_errors(got, ci_kernel.ci_sweeps_plain(*a, **kw))
     U64 = ci_kernel.ci_sweeps_plain(*(x.double() for x in a), **kw)[0]
     f64 = 50.0 * (got[0][..., :12].double() - U64[..., :12]).abs().max()
@@ -501,6 +525,7 @@ def _k7_against_plain(ci, a, kw):
     for name, tol in K7_TOL:
         assert float(err[name].max()) <= tol, name
     assert bool(torch.isfinite(got[0]).all())
+    return got
 
 
 def test_k7_emulated_matches_plain(libs, ci_tick4):
@@ -541,6 +566,27 @@ def test_k7_emulated_all_nonfinite_keeps_nominal(libs, ci_tick4):
                      (Up[keep], Zp[keep], cp[keep]))
     for name, tol in K7_TOL:
         assert float(err[name].max()) <= tol, name
+
+
+@pytest.fixture(scope="module")
+def ci_tick4_h12():
+    return _ci_tick_args(4, horizon=12)
+
+
+@pytest.mark.parametrize("horizon", [10, 12])
+def test_k7_batch_emulated_matches_plain(libs, ci_tick4, ci_tick4_h12,
+                                         horizon):
+    """K7's batch variant (three warps a scenario, its stage scratch
+    aliased, Fz and Fu by column) on the walked-in tick of
+    test_k7_emulated_matches_plain (B=4) at H=10 and H=12: against the
+    plain version under the same tolerances, and bit for bit the latency
+    variant's result (the same device functions, in the same order)."""
+    ci, _ = libs
+    a, kw = ci_tick4 if horizon == 10 else ci_tick4_h12
+    assert a[1].shape[:2] == (4, horizon)
+    got = _k7_against_plain(ci, a, kw, batch=True)
+    for x, y in zip(got, _k7_emulated(ci, a, kw)):
+        assert torch.equal(x, y)
 
 
 @pytest.fixture(scope="module")

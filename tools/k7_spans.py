@@ -11,10 +11,13 @@ the last mark to the phase's counter in shared memory and, at the end of
 the launch, to device counters. Both builds are launched through TREE's own
 wrapper (`ops/ci_kernel.py`) on the solve of one tick of chip_smoke.py's
 walked-in flat CI loop (A1, B=256, H=10, 24 warm sweeps, after 20 walking
-ticks), and on its first scenario alone with 32 sweeps (the B=1 policy's
-call). Prints each build's ptxas lines and times at both shapes, and each
-phase's share of thread 0's cycles in one launch of each. TREE's kernel is
-launched on the inputs this checkout's own loop makes.
+ticks), on its first scenario alone with 32 sweeps (the B=1 policy's
+call), and on the same loop's tick at B=4096 (the benchmark's CI cell,
+past one wave: the wrapper launches the batch variant where the tree has
+one). Prints each build's ptxas lines (every variant) and times at the
+three shapes, and each phase's share of thread 0's cycles in one launch
+of each. TREE's kernel is launched on the inputs this checkout's own loop
+makes.
 """
 
 import collections
@@ -97,10 +100,9 @@ def tree_k7(tree: Path, lib: Path):
     return mod.ci_sweeps_cuda
 
 
-def tick_args(dev):
-    """K7's arguments in one tick of the walked-in flat CI loop, B=256."""
-    st = chip_smoke.ci_roll(chip_smoke.ci_setup(dev, chip_smoke.CI_B, 24),
-                            20)
+def tick_args(dev, batch):
+    """K7's arguments in one tick of the walked-in flat CI loop."""
+    st = chip_smoke.ci_roll(chip_smoke.ci_setup(dev, batch, 24), 20)
     seen = {}
     kernel = ci_kernel.ci_sweeps_cuda
 
@@ -130,12 +132,15 @@ def main():
     solvers = {name: tree_k7(tree, lib) for name, (lib, _) in built.items()}
 
     dev = torch.device("cuda", 0)
-    a, kw = tick_args(dev)
+    a, kw = tick_args(dev, chip_smoke.CI_B)
     B = a[0].shape[0]
     one = tuple(x[:1] if torch.is_tensor(x) and x.dim() and x.shape[0] == B
                 else x for x in a)
+    big, kw_big = tick_args(dev, chip_smoke.K7_BATCH_B)
     calls = {f"B={B}, {kw['iters']} sweeps": (a, kw),
-             "B=1, 32 sweeps": (one, dict(kw, iters=32))}
+             "B=1, 32 sweeps": (one, dict(kw, iters=32)),
+             f"B={chip_smoke.K7_BATCH_B}, {kw_big['iters']} sweeps":
+                 (big, kw_big)}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
