@@ -813,20 +813,23 @@ def tri(n):
     return n * (n + 1) // 2
 
 # label -> (batch, horizon, 0-based PDIP iteration of the Newton matrix);
-# K4 serves n=120 with its mid variant, n=360 with the blocked one, and
-# "b=1" is the B=1 latency cells' shape
+# K4 serves n=120 with its mid variant, n=360 with the blocked one, "b=1"
+# is the B=1 latency cells' shape and "n=360, B=4096" the benchmark cell
+# go1_admm_h30.b4096's (one K4 and 30 K5 a tick)
 CHOL_CASES = {"early": (B, 10, 0), "late": (B, 10, 14), "n=360": (512, 30, 0),
-              "b=1": (1, 10, 0)}
+              "b=1": (1, 10, 0), "n=360, B=4096": (B, 30, 0)}
 # the kernels line's max_abs_err for K4/K5 is the elementwise difference
 # from the plain version where every matrix is far from singular (the late
 # matrices are held by residuals instead)
-WELL_CONDITIONED = ("early", "n=360", "b=1")
+WELL_CONDITIONED = ("early", "n=360", "b=1", "n=360, B=4096")
 
 
 def phase_chol(dev, card):
     """Kernels K4 and K5 vs their plain versions on the Newton matrices of
     a real B=4096, H=10 PDIP solve at an early and a late iteration, and at
-    n=360 (H=30, the device-memory path) with B=512. Factors are held by
+    n=360 (H=30, the device-memory path) with B=512 and B=4096 (the
+    benchmark's ADMM cell's shape: its factor reads 2.1 GB, its solve
+    streams 2.1 GB of factors). Factors are held by
     the relative residual of L L^T - K, solves by that of K x - b (two
     correct float32 factorizations of these matrices, whose scaling d is
     clipped at 1e6, differ elementwise far beyond float32 resolution);

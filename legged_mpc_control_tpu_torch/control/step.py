@@ -554,7 +554,8 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
                              solver: str = "riccati",
                              low_level_type: int = 0, terrain=None,
                              warm=None, fused_substeps: bool = True,
-                             carry_feedback: bool = False):
+                             carry_feedback: bool = False,
+                             admm_rho: float = 0.1):
     """One scenario-batched closed-loop tick.
 
     loop: LoopState with a leading scenario axis on every leaf; params:
@@ -574,6 +575,7 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
     carry_feedback (fused only): the previous tick's chain already left a
     complete Feedback, so the opening feedback pass is skipped (seed the
     first tick with `seed_batched_feedback`).
+    admm_rho: the ADMM step (solver "admm"), `convex_mpc.mpc_tick_batched`.
 
     Returns (loop', warm')."""
     _check_kf_type(kf_type)
@@ -589,7 +591,7 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
                              kf_type=kf_type, terrain=terrain)
     cs, warm = convex_mpc.mpc_tick_batched(
         cs, params, pattern, dt_mpc, horizon=horizon, iters=iters,
-        solver=solver, warm=warm)
+        solver=solver, warm=warm, admm_rho=admm_rho)
 
     if fused:
         out, sim = _substep_chain(cs, loop.sim, params, substeps, dt_ll,

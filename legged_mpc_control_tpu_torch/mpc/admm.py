@@ -31,6 +31,7 @@ from legged_mpc_control_tpu_torch.mpc.pdip import (
     _h_vec,
 )
 from legged_mpc_control_tpu_torch.ops import chol_kernel
+from legged_mpc_control_tpu_torch.utils import trace
 
 
 class AdmmResult(NamedTuple):
@@ -40,6 +41,7 @@ class AdmmResult(NamedTuple):
     warm: tuple            # (x, z, y) scaled state for warm-starting
 
 
+@trace.spanned(trace.ADMM)
 def solve_qp_admm_batched(P, q, mu, fz_max, contact, *, iters=200,
                           rho=0.1, sigma=1e-6, alpha=1.6, warm=None):
     """OSQP-style ADMM on the batched condensed QP: P (B,n,n), q (B,n),

@@ -22,7 +22,8 @@ P and q are large batched matrix products outside any kernel, so
 products keep ~3 decimal digits, below this QP's ~1e-4 R regularization,
 and P = S^T Q S comes out indefinite (the JAX package forces
 Precision.HIGHEST for the same reason). `build_condensed_qp` refuses to run
-with TF32 matrix products enabled.
+with TF32 matrix products enabled. From float32 inputs P = S^T Q S is
+summed in float64 and rounded once.
 """
 
 from typing import NamedTuple
@@ -108,7 +109,15 @@ def build_condensed_qp(x0, x_ref, A_seq, Bm, contact, q_weights, r_weights,
     rbar = _per_scenario(r_weights, B, x_ref).repeat(1, H)
 
     SQ = Sm * qbar[:, :, None]
-    P = Sm.transpose(-1, -2) @ SQ + torch.diag_embed(rbar)
+    # float32 sums over the 12H state rows round P by ~7 ulp, which the
+    # Hessian's least eigenvalues (1e-4 of its largest, Jacobi-scaled, at
+    # H=30) carry into the solution: the product accumulates in float64
+    acc = torch.float64 if dtype == torch.float32 else dtype
+    Sa = Sm.to(acc)
+    P = Sa.transpose(-1, -2) @ (Sa * qbar.to(acc)[:, :, None])
+    del Sa
+    P.diagonal(dim1=-2, dim2=-1).add_(rbar)
+    P = P.to(dtype)
     # exact symmetry: the Cholesky factorizations read one triangle
     P = 0.5 * (P + P.transpose(-1, -2))
     resid = (c - x_ref).reshape(B, -1)

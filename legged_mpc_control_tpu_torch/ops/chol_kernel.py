@@ -29,6 +29,7 @@ import types
 import torch
 
 from legged_mpc_control_tpu_torch.ops import cuda_build
+from legged_mpc_control_tpu_torch.utils import trace
 
 
 def cholesky_plain(K):
@@ -99,6 +100,7 @@ def _check(name, t, shape, dev):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
 
 
+@trace.spanned(trace.K4)
 def cholesky_cuda(K):
     """Batched Cholesky factor F of K (B, n, n) (kernel K4 on CUDA, the
     plain version on CPU); see the module docstring for F's layout."""
@@ -118,6 +120,7 @@ def cholesky_cuda(K):
     return F
 
 
+@trace.spanned(trace.K5)
 def cho_solve_cuda(F, b):
     """Solve L L^T x = b for F from `cholesky_cuda` (B, n, n) and b (B, n)
     (kernel K5 on CUDA, the plain version on CPU). Returns x (B, n)."""

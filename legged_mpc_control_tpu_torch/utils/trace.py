@@ -18,6 +18,10 @@ The spans nest as the layers call each other:
       lmpc.feedback_update     control/step: the feedback pass
       lmpc.mpc_prepare         mpc/convex_mpc: before the QP solve
       lmpc.k1                  ops/riccati_kernel: the Riccati IPM (K1)
+      lmpc.qp_condense         mpc/convex_mpc: the condensed QP's build
+      lmpc.admm                mpc/admm: the ADMM solve
+        lmpc.k4                ops/chol_kernel: the Cholesky factor (K4)
+        lmpc.k5                ops/chol_kernel: the Cholesky solve (K5)
       lmpc.mpc_finish          mpc/convex_mpc: after it
       lmpc.lci_seam            mpc/lci_mpc: the LCI seam
         lmpc.ci_prep           mpc/ci_mpc: the CI walk's prep
@@ -26,6 +30,9 @@ The spans nest as the layers call each other:
         lmpc.ci_post           mpc/ci_mpc: the CI walk's post
       lmpc.k2                  control/step: the substep chain (K2 / K3)
       lmpc.feedback_unpack     control/step: the chain's Feedback block
+
+K4 and K5 carry their spans wherever they are called (the PDIP solve, the
+articulated twin, the LCI walk), not only inside the ADMM solve.
 """
 
 import contextlib
@@ -48,9 +55,14 @@ CI_PREP = "ci_prep"
 CI_SOLVE = "ci_solve"
 CI_POST = "ci_post"
 K7 = "k7"
+QP_CONDENSE = "qp_condense"
+ADMM = "admm"
+K4 = "k4"
+K5 = "k5"
 
 NAMES = (TICK, FEEDBACK_UPDATE, MPC_PREPARE, MPC_FINISH, K1, K2,
-         FEEDBACK_UNPACK, LCI_SEAM, CI_PREP, CI_SOLVE, CI_POST, K7)
+         FEEDBACK_UNPACK, LCI_SEAM, CI_PREP, CI_SOLVE, CI_POST, K7,
+         QP_CONDENSE, ADMM, K4, K5)
 
 _OFF = contextlib.nullcontext()
 

@@ -1,7 +1,7 @@
 """The port's layer spans (`utils/trace.py`) on the CPU: with no profiler
 `span` is one shared null context; under `torch.profiler` a B=8 convex tick
-and a B=8 contact-implicit tick emit the layer spans, each inside the span
-of the layer that calls it."""
+(Riccati or ADMM) and a B=8 contact-implicit tick emit the layer spans,
+each inside the span of the layer that calls it."""
 
 import pytest
 import torch
@@ -20,6 +20,9 @@ CONVEX = {"mpc_prepare": "tick", "k1": "tick", "mpc_finish": "tick",
           "k2": "tick", "feedback_unpack": "tick"}
 CONVEX_UNCARRIED = {"feedback_update": "tick", "mpc_prepare": "tick",
                     "k1": "tick", "mpc_finish": "tick", "k2": "tick"}
+ADMM = {"mpc_prepare": "tick", "qp_condense": "tick", "admm": "tick",
+        "k4": "admm", "k5": "admm", "mpc_finish": "tick", "k2": "tick",
+        "feedback_unpack": "tick"}
 CI = {"feedback_update": "tick", "lci_seam": "tick", "ci_prep": "lci_seam",
       "ci_solve": "lci_seam", "k7": "ci_solve", "ci_post": "lci_seam",
       "k2": "tick"}
@@ -90,6 +93,21 @@ def test_convex_tick_spans_nest(carry):
                                       solver="riccati",
                                       carry_feedback=carry)
     _assert_nested(_spans(tick), CONVEX if carry else CONVEX_UNCARRIED)
+
+
+def test_admm_tick_spans_nest():
+    loop, pb, pattern = _convex_loop()
+    loop = step.seed_batched_feedback(loop, pb)
+
+    def tick():
+        step.closed_loop_tick_batched(loop, pb, pattern, horizon=5, iters=3,
+                                      solver="admm", carry_feedback=True,
+                                      admm_rho=1e-3)
+    spans = _spans(tick)
+    _assert_nested(spans, ADMM)
+    # one condensed build, one solve, one factor, one K5 an iteration
+    assert {k: len(spans[k]) for k in ("qp_condense", "admm", "k4", "k5")
+            } == {"qp_condense": 1, "admm": 1, "k4": 1, "k5": 3}
 
 
 def test_ci_tick_spans_nest():
