@@ -5,14 +5,15 @@
 Builds every hand-written CUDA kernel of the port from
 legged_mpc_control_tpu_torch/csrc with nvcc (sm_90a, one nvcc per source,
 all at once; K1's two, K4's three, K5/K6's five and K7's two variants
-must show no stack frame and no spills), holds each against its plain PyTorch
-version at its path's shapes (K1 at H=10 and H=30, and at the loop's own
-call, iters=4 warm; K4 and K5 at n=120 with B=4096 and B=1, n=360, n=24
-(K4)), then drives the paths of the
+and the ADMM step kernel must show no stack frame and no spills), holds
+each against its plain PyTorch version at its path's shapes (K1 at H=10
+and H=30, and at the loop's own call, iters=4 warm; K4 and K5 at n=120
+with B=4096 and B=1, n=360, n=24 (K4); the ADMM step kernel at n=360,
+B=4096 in both its launch modes), then drives the paths of the
 batched Go1 trot closed loop (`parallel/runner.make_batched_rollout`)
 through their quality gates and times them at B=4096: Riccati with kf_type
 0 (kernels K1, K2) and 1 (K1, K3), and the condensed PDIP and ADMM solvers
-(K4, K5, K2); then the
+(K4, K5, K2; the ADMM step kernel after each K5 solve); then the
 condensed solve rate and the B=1 solve latencies. Then the contact-implicit
 MPC (`control/step.closed_loop_tick_lci_batched`, A1, B=256): the flat
 closed loop (K7, K2) with its 24-vs-48-sweep gate, K7 against its plain
@@ -97,6 +98,9 @@ REPO_K4 = "legged_mpc_control_tpu/ops/chol_pallas.py:247"
 REPO_K5 = "legged_mpc_control_tpu/ops/chol_pallas.py:271"
 REPO_K6 = "legged_mpc_control_tpu/ops/chol_pallas.py:211"
 REPO_K7 = "legged_mpc_control_tpu/ops/ci_pallas.py:641"
+# the ADMM step kernel replaces no Pallas kernel: the JAX package runs the
+# iteration as jnp ops here
+REPO_ADMM = "legged_mpc_control_tpu/mpc/admm.py (jnp ops, no Pallas kernel)"
 CSRC = "legged_mpc_control_tpu_torch/csrc/"
 
 # the least time an H100 SXM could take (its datasheet peaks): bytes
@@ -153,6 +157,28 @@ K7_FLOP_PER_STAGE_SWEEP = (3 * 2 * 24 ** 3 + 24 ** 3 // 3
                            + 2 * 24 ** 2 * 25 + 12_096 + 2_430
                            + 21 * 24 ** 2 + 3_900 + 700
                            + 6 * (2 * 24 ** 2 + 150 + 600))
+
+
+# The ADMM step kernel (csrc/admm_step.cu), per (scenario, step, leg): an
+# update reads x_t, x, q~ (3 each), y, h~ (6 each), G~ (18) and writes x,
+# z, y (3 + 6 + 6) and the next right-hand side (3), 57 floats; its
+# operations are the relaxation (9), six constraint rows (10 each: the
+# 3-term product, the division, the clip's sum, the dual step) and the
+# right-hand side (54: w = rho z - y, the 6-term G~^T w, sigma x - q~).
+# The first launch of a solve (rhs only) reads x, q~ (3 each), z, y (6
+# each), G~ (18) and writes the right-hand side, 39 floats.
+ADMM_FLOATS_PER_LEG = 57
+ADMM_FLOP_PER_LEG = 9 + 6 * 10 + 54
+ADMM_FIRST_FLOATS_PER_LEG = 39
+ADMM_FIRST_FLOP_PER_LEG = 54
+# one launch against the plain step's torch operations on the card: within
+# this share of each output's largest entry (tests/test_torch_cuda.py's
+# test_admm_step_kernel_matches_plain_step): one step of float32
+# roundings, where cuBLAS's products sum with FMAs and the plain step
+# divides by rho as a product with its reciprocal
+ADMM_STEP_REL_TOL = 2e-6
+# the ADMM cell's (go1_admm_h30.b4096): H=30, rho 1e-3, 30 iterations
+ADMM_H, ADMM_RHO, ADMM_ITERS = 30, 1e-3, 30
 
 
 class GateError(RuntimeError):
@@ -297,7 +323,8 @@ GATED = {"riccati_ipm": ("K1", K1_VARIANTS),
          "substep_chain": ("K2/K3", K23_VARIANTS),
          "chol_factor": ("K4", K4_VARIANTS),
          "chol_lanes": ("K5/K6", K56_VARIANTS),
-         "ci_sweeps": ("K7", K7_VARIANTS)}
+         "ci_sweeps": ("K7", K7_VARIANTS),
+         "admm_step": ("ADMM step", ("admm_step_kernel",))}
 
 
 def ptxas_report(log):
@@ -317,7 +344,7 @@ def phase_build():
     from legged_mpc_control_tpu_torch.ops import cuda_build
 
     sources = ("riccati_ipm", "substep_chain", "chol_factor", "chol_lanes",
-               "ci_sweeps")
+               "ci_sweeps", "admm_step")
     t0 = phase(f"build: nvcc sm_90a, {len(sources)} sources in parallel")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(cuda_build.build, sources))
@@ -688,6 +715,79 @@ def solve_rate(dev, card, horizon):
           f"{solves:.1f} ({card})", flush=True)
     done(t0)
     return solves
+
+
+def phase_admm_step(dev, card):
+    """The ADMM step kernel against its plain version at the ADMM cell's
+    shape (B=4096, H=30, n=360, rho 1e-3): the inputs of the tenth update
+    of a 30-iteration cold ADMM solve of the synthetic trot QP, captured at
+    the call; both launch modes (an update with the next right-hand side,
+    and the first right-hand side alone) held to ADMM_STEP_REL_TOL of each
+    output's largest entry, then timed with CUDA events."""
+    from legged_mpc_control_tpu_torch.mpc import admm, qp_builder
+    from legged_mpc_control_tpu_torch.ops import admm_kernel
+
+    t0 = phase(f"ADMM step kernel vs plain, B={B}, H={ADMM_H}, n="
+               f"{12 * ADMM_H}, inputs of a cold solve's tenth update")
+    params, x0, contact, lin = qp_problem(B, ADMM_H, dev)
+    x_ref, A_seq, Bm = lin(x0)
+    qp = qp_builder.build_condensed_qp(
+        x0, x_ref, A_seq, Bm, contact, params.q_weights, params.r_weights,
+        params.mu, params.fz_max, DT)
+    seen = []
+    step = admm_kernel.admm_step
+
+    def capture(*a, **kw):
+        if a[0] is not None:
+            seen.append((a, kw))
+        return step(*a, **kw)
+
+    with patched(admm_kernel, admm_step=capture):
+        admm.solve_qp_admm_batched(qp.P, qp.q, qp.mu, qp.fz_max, qp.contact,
+                                   iters=10, rho=ADMM_RHO)
+    a, kw = seen[-1]
+    modes = {"update + rhs": a, "rhs only": (None, *a[1:])}
+    err = {}
+    for mode, args in modes.items():
+        got = admm_kernel.admm_step(*args, **kw)
+        want = admm_kernel.admm_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        rel = []
+        for name, g, w in zip(("x", "z", "y", "rhs"), got, want):
+            check(bool(torch.isfinite(g).all()),
+                  f"ADMM step ({mode}): non-finite {name}")
+            d = float((g - w).abs().max())
+            rel.append(d / float(w.abs().max()))
+            err[mode] = max(err.get(mode, 0.0), d)
+        print(f"   {mode}: max |kernel - plain| / max |plain| of x, z, y, "
+              f"rhs: " + ", ".join(f"{r:.3e}" for r in rel), flush=True)
+        check(max(rel) <= ADMM_STEP_REL_TOL,
+              f"ADMM step ({mode}): {max(rel)} of the largest entry")
+    legs = B * ADMM_H * 4
+    out = dict(
+        err=max(err.values()),
+        ms=cuda_ms(lambda: admm_kernel.admm_step(*a, **kw), reps=50),
+        plain_ms=cuda_ms(lambda: admm_kernel.admm_step_plain(*a, **kw),
+                         reps=5),
+        bound=bound(legs * ADMM_FLOATS_PER_LEG * 4,
+                    legs * ADMM_FLOP_PER_LEG),
+        ms_first=cuda_ms(lambda: admm_kernel.admm_step(None, *a[1:], **kw),
+                         reps=50),
+        plain_ms_first=cuda_ms(
+            lambda: admm_kernel.admm_step_plain(None, *a[1:], **kw),
+            reps=5),
+        bound_first=bound(legs * ADMM_FIRST_FLOATS_PER_LEG * 4,
+                          legs * ADMM_FIRST_FLOP_PER_LEG))
+    print(f"   time ({card}): update + rhs: kernel {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, bound {out['bound'][0]:.4f} ms "
+          f"({out['bound'][1]}; the kernel at "
+          f"{100 * out['bound'][0] / out['ms']:.1f} % of it); rhs only: "
+          f"kernel {out['ms_first']:.4f} ms, plain "
+          f"{out['plain_ms_first']:.4f} ms, bound "
+          f"{out['bound_first'][0]:.4f} ms ({out['bound_first'][1]})",
+          flush=True)
+    done(t0)
+    return out
 
 
 KF_TOL = {"kf_x": 2e-3}     # tests/test_substep_fused.py's kf1 bracket
@@ -1128,7 +1228,16 @@ def phase_condensed(dev, card, walked):
             torch.cuda.synchronize()
             elapsed = time.perf_counter() - t1
         check_launched(launches, ("chol_factor", "chol_solve",
-                                  "substep_chain"), solver)
+                                  "substep_chain")
+                       + (("admm_step",) if solver == "admm" else ()),
+                       solver)
+        if solver == "admm":
+            # a step launch after each K5 solve, one more a solve (K4 once)
+            check(launches["admm_step"] == launches["chol_solve"]
+                  + launches["chol_factor"],
+                  f"admm: {launches['admm_step']} step launches for "
+                  f"{launches['chol_solve']} K5 and "
+                  f"{launches['chol_factor']} K4 launches")
         mean_h = float(final.sim.pos[:, 2].mean())
         check(0.2 < mean_h < 0.4, f"{solver}: implausible height {mean_h}")
         rate = B * 10 / elapsed
@@ -3713,6 +3822,7 @@ def main():
     k2 = phase_k2(dev, card)
     k3 = phase_k3(dev, card)
     chol = phase_chol(dev, card)
+    admm_step = phase_admm_step(dev, card)
     launches, rate, solves, walked = phase_main(dev, card)
     k3_launches, rate_kf1 = phase_kf1(dev, card)
     loops = phase_condensed(dev, card, walked)
@@ -3779,7 +3889,11 @@ def main():
             k6["plain_ms"], (k6["bound_ms"], k6["bound_by"]), k6["lib_ms"]),
         row("ci_sweeps", "ci_sweeps.cu", REPO_K7, ci_launches["ci_sweeps"],
             k7["err"], k7["ms"], k7["plain_ms"],
-            (k7["bound_ms"], k7["bound_by"]), None)]}
+            (k7["bound_ms"], k7["bound_by"]), None),
+        row("admm_step", "admm_step.cu", REPO_ADMM,
+            loops["admm"]["launches"]["admm_step"], admm_step["err"],
+            admm_step["ms"], admm_step["plain_ms"], admm_step["bound"],
+            None)]}
     # the twin's mass-matrix solve (n=18, B=256): launches a tick and time
     for r, k in zip(kernels["kernels"][3:5], ("4", "5")):
         r["launches_wb"] = wb_k45["launches_wb"][r["name"]]
@@ -3811,6 +3925,10 @@ def main():
             rows["ci_sweeps"]["launches_ci_" + name] = n
     rows["ci_sweeps"]["max_abs_err_b32"] = k7_err_b32["unfused"]
     rows["ci_sweeps"]["max_abs_err_b32_wbc"] = k7_err_b32["wbc"]
+    # the ADMM step's first launch of a solve (the right-hand side alone)
+    rows["admm_step"]["ms_rhs_only"] = admm_step["ms_first"]
+    rows["admm_step"]["plain_ms_rhs_only"] = admm_step["plain_ms_first"]
+    rows["admm_step"]["bound_ms_rhs_only"] = admm_step["bound_first"][0]
     # config 5 (B=65,536): launches a tick, time, error and bound; the
     # CLI's paths: launches a tick
     for name, k in (("riccati_ipm", "k1"), ("substep_chain", "k2")):

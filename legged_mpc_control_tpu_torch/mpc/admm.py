@@ -17,7 +17,10 @@ equilibration of the scaled constraint blocks:
 
 The KKT matrix is constant over the iterations: it is factored once per
 solve (kernel K4 on CUDA tensors) and every iteration is one solve (kernel
-K5), `ops/chol_kernel.py`; CPU tensors take the plain versions.
+K5), `ops/chol_kernel.py`, then one launch of the ADMM step kernel for the
+x, z and y updates and the next solve's right-hand side,
+`ops/admm_kernel.py` (one more before the first solve for its right-hand
+side). CPU tensors take the plain versions.
 """
 
 from typing import NamedTuple
@@ -30,7 +33,7 @@ from legged_mpc_control_tpu_torch.mpc.pdip import (
     _g_local,
     _h_vec,
 )
-from legged_mpc_control_tpu_torch.ops import chol_kernel
+from legged_mpc_control_tpu_torch.ops import admm_kernel, chol_kernel
 from legged_mpc_control_tpu_torch.utils import trace
 
 
@@ -70,12 +73,6 @@ def solve_qp_admm_batched(P, q, mu, fz_max, contact, *, iters=200,
     hs = _h_vec(H, fz_max, q).expand(B, H, 4, N_CON_PER_LEG) * e
     neg = -1e20 if dtype == torch.float64 else -3e38
 
-    def Gdot(u):
-        return torch.einsum("bhlri,bhli->bhlr", Gb, u.reshape(B, H, 4, 3))
-
-    def GTdot(w):
-        return torch.einsum("bhlri,bhlr->bhli", Gb, w).reshape(B, n)
-
     # constant KKT matrix P~ + sigma I + rho G~^T G~ (3x3 block-diagonal
     # contribution per (step, leg)), factored once
     gtg = torch.einsum("bhlri,bhlrj->bhlij", Gb, Gb)
@@ -89,16 +86,14 @@ def solve_qp_admm_batched(P, q, mu, fz_max, contact, *, iters=200,
     else:
         x, z, y = warm
 
+    kw = dict(rho=rho, sigma=sigma, alpha=alpha, neg=neg)
+    if iters > 0:
+        rhs = admm_kernel.admm_step(None, x, z, y, Gb, hs, qs, **kw)[3]
     for _ in range(iters):
-        x_t = chol_kernel.cho_solve_cuda(
-            F, sigma * x - qs + GTdot(rho * z - y))
-        x = alpha * x_t + (1.0 - alpha) * x
-        Gx = Gdot(x)
-        z2 = torch.minimum(torch.clamp(Gx + y / rho, min=neg), hs)
-        y = y + rho * (Gx - z2)
-        z = z2
+        x_t = chol_kernel.cho_solve_cuda(F, rhs)
+        x, z, y, rhs = admm_kernel.admm_step(x_t, x, z, y, Gb, hs, qs, **kw)
 
-    r_prim = (Gdot(x) - z).reshape(B, -1).abs().amax(dim=-1)
+    r_prim = (admm_kernel.gdot(Gb, x) - z).reshape(B, -1).abs().amax(dim=-1)
 
     # unscale: u = D x; the dual residual in the original units
     u = x * d

@@ -6,7 +6,9 @@
 state: the condensed build alone, the ADMM solve alone cold and warm, one
 cold and one warm tick of `closed_loop_tick_batched(..., solver="admm",
 horizon=30)` by layer; and the work counts of K4 and K5 at n=360 against
-hand sums."""
+hand sums, and the composition of a solve: one K4, then one K5 and one
+ADMM step kernel an iteration (and a step kernel launch before the first,
+for its right-hand side)."""
 
 import pytest
 import torch
@@ -20,6 +22,7 @@ from benchmark.reference.mpc import gait as ref_gait
 from legged_mpc_control_tpu_torch.config import go1_params
 from legged_mpc_control_tpu_torch.control import step
 from legged_mpc_control_tpu_torch.mpc import admm, convex_mpc, gait, qp_builder
+from legged_mpc_control_tpu_torch.ops import admm_kernel, chol_kernel
 from legged_mpc_control_tpu_torch.parallel import runner
 
 B, H, ITERS, RHO = 4, 30, 30, 1e-3
@@ -186,3 +189,36 @@ def test_k4_k5_work_at_n360():
     t5, by5 = counts.least_time_s(*chol_counts.k5_work(b, n))
     assert by4 == "bytes" and t4 == pytest.approx(0.9516e-3, rel=1e-3)
     assert by5 == "bytes" and t5 == pytest.approx(0.6374e-3, rel=1e-3)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_admm_solve_launches_per_iteration(stage, monkeypatch, warm):
+    """The kernel wrappers a 30-iteration solve calls (each one launch on
+    the card): K4 once, K5 30 times, the step kernel 31 times (the first
+    right-hand side alone, then an update with the next one after each
+    solve)."""
+    qp = _build(stage, qp_builder.build_condensed_qp)
+    args = (qp.P, qp.q, qp.mu, qp.fz_max, qp.contact)
+    start = (admm.solve_qp_admm_batched(*args, iters=ITERS, rho=RHO).warm
+             if warm else None)
+    calls = []
+
+    def counted(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*a, **kw):
+            calls.append((name, a[0] is not None))
+            return fn(*a, **kw)
+        monkeypatch.setattr(module, name, wrapper)
+    for module, name in ((chol_kernel, "cholesky_cuda"),
+                         (chol_kernel, "cho_solve_cuda"),
+                         (admm_kernel, "admm_step")):
+        counted(module, name)
+    admm.solve_qp_admm_batched(*args, iters=ITERS, rho=RHO, warm=start)
+    step = [c for c in calls if c[0] == "admm_step"]
+    assert [c[0] for c in calls[:2]] == ["cholesky_cuda", "admm_step"]
+    assert sum(c[0] == "cholesky_cuda" for c in calls) == 1
+    assert sum(c[0] == "cho_solve_cuda" for c in calls) == ITERS
+    assert [c[0] for c in calls[2:]] == ["cho_solve_cuda",
+                                         "admm_step"] * ITERS
+    assert [c[1] for c in step] == [False] + [True] * ITERS

@@ -262,10 +262,103 @@ def test_condensed_rollout_launches_the_chol_kernels(trotting, solver,
         solver=solver)(loop, go1_params(F32, loop.sim.pos.device))
     factor = 3 * iters if solver == "pdip" else 3
     solves = 2 * factor if solver == "pdip" else 3 * iters
-    assert cuda_build.LAUNCHES == {"chol_factor": factor,
-                                   "chol_solve": solves, "substep_chain": 3}
+    want = {"chol_factor": factor, "chol_solve": solves, "substep_chain": 3}
+    if solver == "admm":                # a step an iteration, one before
+        want["admm_step"] = 3 * (iters + 1)
+    assert cuda_build.LAUNCHES == want
     assert bool(torch.isfinite(pos).all())
     assert 0.2 < float(final.sim.pos[:, 2].mean()) < 0.4
+
+
+@pytest.fixture(scope="module")
+def admm_qp(trotting):
+    """The condensed QP at the ADMM cell's horizon (H=30, n=360) of the
+    first 64 trotting scenarios, with per-scenario mu and fz_max."""
+    loop, params, pattern = trotting
+    _, stage = convex_mpc.mpc_prepare(loop.controller, params, pattern,
+                                      0.01, horizon=30)
+    qp = convex_mpc.build_condensed_from_stage(stage, 0.01)
+    dev = qp.P.device
+    mu = torch.linspace(0.35, 0.9, 64, device=dev)
+    fz = torch.linspace(140.0, 250.0, 64, device=dev)
+    return qp.P[:64], qp.q[:64], mu, fz, qp.contact[:64]
+
+
+def _admm_solve(args, warm, device, dtype):
+    from legged_mpc_control_tpu_torch.mpc import admm
+
+    return admm.solve_qp_admm_batched(
+        *(a.to(device, dtype) if a.is_floating_point() else a.to(device)
+          for a in args), iters=30, rho=1e-3,
+        warm=None if warm is None else tuple(w.to(device, dtype)
+                                             for w in warm))
+
+
+@pytest.mark.parametrize("start", ["cold", "warm"])
+def test_admm_solve_on_the_card_matches_plain(admm_qp, start):
+    """solve_qp_admm_batched at n=360, B=64, 30 iterations, rho 1e-3 (the
+    ADMM cell's), on the card (K4 once, K5 30 times, the step kernel 31
+    times) against the plain float32 solve of the same inputs on the CPU,
+    with float64 as the exact reference: the float32 roundings of K4, K5
+    and the step differ from the plain versions', and the ill-conditioned
+    QP (Hessian eigenvalues 1e-4..62 after scaling) carries any float32
+    solve ~0.1-0.15 N from float64 (CPU). So the card's solve may lie at
+    most 1.5 times the plain solve's distance from float64, plus 0.02 N."""
+    warm = None
+    if start == "warm":
+        warm = _admm_solve(admm_qp, None, admm_qp[0].device, F32).warm
+    cuda_build.LAUNCHES.clear()
+    got = _admm_solve(admm_qp, warm, admm_qp[0].device, F32)
+    assert cuda_build.LAUNCHES == {"chol_factor": 1, "chol_solve": 30,
+                                   "admm_step": 31}
+    plain = _admm_solve(admm_qp, warm, "cpu", F32)
+    exact = _admm_solve(admm_qp, warm, "cpu", torch.float64)
+    for a in (got.u, *got.warm):
+        assert bool(torch.isfinite(a).all())
+    assert float(exact.u.abs().max()) > 10.0
+    e_card = float((got.u.cpu().double() - exact.u).abs().max())
+    e_plain = float((plain.u.double() - exact.u).abs().max())
+    print(f"{start}: max |u - u64| card {e_card:.4f} N, plain "
+          f"{e_plain:.4f} N; card vs plain "
+          f"{float((got.u.cpu() - plain.u).abs().max()):.4f} N")
+    assert e_card <= 1.5 * e_plain + 0.02
+
+
+def test_admm_step_kernel_matches_plain_step(admm_qp):
+    """One launch of the step kernel against the plain step's torch
+    operations on the card, from the state of a warm solve's tenth
+    iteration: within 2e-6 of each output's largest entry (one step of
+    float32 roundings: the plain step's cuBLAS products sum with FMAs and
+    divide by rho as a product with its reciprocal; a CPU float32 step lies
+    1e-7 from float64)."""
+    from legged_mpc_control_tpu_torch.ops import admm_kernel
+
+    seen = []
+    step_fn = admm_kernel.admm_step
+
+    def keep(*a, **kw):
+        if a[0] is not None and len(seen) < 10:
+            seen.append((a, kw))
+        return step_fn(*a, **kw)
+    admm_kernel.admm_step = keep
+    try:
+        _admm_solve(admm_qp, None, admm_qp[0].device, F32)
+    finally:
+        admm_kernel.admm_step = step_fn
+    a, kw = seen[-1]
+    before = cuda_build.LAUNCHES["admm_step"]
+    got = admm_kernel.admm_step(*a, **kw)
+    want = admm_kernel.admm_step_plain(*a, **kw)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 2e-6 * float(w.abs().max())
+    first = admm_kernel.admm_step(None, *a[1:], **kw)
+    assert all(f is t for f, t in zip(first[:3], a[1:4]))
+    r = admm_kernel.admm_step_plain(None, *a[1:], **kw)[3]
+    assert float((first[3] - r).abs().max()) <= 2e-6 * float(r.abs().max())
+    assert cuda_build.LAUNCHES["admm_step"] == before + 2
+    with pytest.raises(TypeError):
+        admm_kernel.admm_step(*(None if t is None else t.double()
+                                for t in a), **kw)
 
 
 def test_kf1_rollout_launches_the_kf1_chain(trotting_kf1):

@@ -38,6 +38,7 @@ import torch
 from legged_mpc_control_tpu_torch.config import a1_params, go1_params
 from legged_mpc_control_tpu_torch.control import sensors, step
 from legged_mpc_control_tpu_torch.mpc import (
+    admm,
     ci_mpc,
     convex_mpc,
     gait,
@@ -45,6 +46,7 @@ from legged_mpc_control_tpu_torch.mpc import (
     riccati,
 )
 from legged_mpc_control_tpu_torch.ops import (
+    admm_kernel,
     chol_kernel,
     ci_kernel,
     substep_kernel,
@@ -166,6 +168,12 @@ inline double __shfl_sync(unsigned, double x, int src) {
 }
 using std::isfinite;
 inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
+// the rounded-alone arithmetic intrinsics (no FMA contraction on the host:
+// g++ targets x86-64 without FMA here)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 static std::function<void()>* g_body;
 static void fiber_main() {
   (*g_body)();
@@ -283,6 +291,20 @@ extern "C" void substep_chain_emu(const float* in, const int* mode,
   run_blocks((B + per_warp - 1) / per_warp, THREADS, [&]() {
     if (kf1) substep_chain_kernel<true>(in, mode, out, B, substeps, dt);
     else substep_chain_kernel<false>(in, mode, out, B, substeps, dt);
+  });
+}
+"""
+
+ADMM_LAUNCH = r"""
+extern "C" void admm_step_emu(const float* xt, const float* x,
+    const float* z, const float* y, const float* G, const float* h,
+    const float* q, float* x_out, float* z_out, float* y_out, float* rhs,
+    int B, int H, float rho, float sigma, float alpha, float beta,
+    float neg) {
+  const long legs = (long)B * H * 4;
+  run_blocks((int)((legs + THREADS - 1) / THREADS), THREADS, [&]() {
+    admm_step_kernel(xt, x, z, y, G, h, q, x_out, z_out, y_out, rhs, legs,
+                     rho, sigma, alpha, beta, neg);
   });
 }
 """
@@ -793,3 +815,81 @@ def test_k2_k3_emulated_match_plain(substep_lib, kf_type):
         atol, rtol = KF_P_TOL
         dP = (got["kf_P"] - want["kf_P"]).abs()
         assert float((dP - rtol * want["kf_P"].abs()).max()) <= atol
+
+
+@pytest.fixture(scope="module")
+def admm_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ (C++20) to compile the CUDA sources for the "
+                    "CPU")
+    lib = _emulated("admm_step", ADMM_LAUNCH,
+                    tmp_path_factory.mktemp("emulated_admm"))
+    lib.admm_step_emu.argtypes = ([ctypes.c_void_p] * 11
+                                  + [ctypes.c_int] * 2
+                                  + [ctypes.c_float] * 5)
+    return lib
+
+
+def _emulated_step(lib, calls):
+    """`admm_kernel.admm_step` with the emulated kernel in the launch's
+    place; appends to `calls` whether each call updates (x_t given)."""
+    def step_emu(x_t, x, z, y, Gb, hs, qs, *, rho, sigma, alpha, neg):
+        calls.append(x_t is not None)
+        B, H = Gb.shape[:2]
+        x, z, y, Gb, hs, qs = (t.contiguous() for t in (x, z, y, Gb, hs,
+                                                         qs))
+        outs, ptrs = (x, z, y), (None,) * 3
+        if x_t is not None:
+            x_t = x_t.contiguous()
+            outs = tuple(torch.full_like(t, float("nan")) for t in outs)
+            ptrs = tuple(t.data_ptr() for t in outs)
+        r = torch.full_like(x, float("nan"))
+        lib.admm_step_emu(
+            None if x_t is None else x_t.data_ptr(), x.data_ptr(),
+            z.data_ptr(), y.data_ptr(), Gb.data_ptr(), hs.data_ptr(),
+            qs.data_ptr(), *ptrs, r.data_ptr(), B, H, rho, sigma, alpha,
+            1.0 - alpha, neg)
+        return (*outs, r)
+    return step_emu
+
+
+# H=30 is the ADMM cell's horizon (n = 360), H=10 the loop's default
+@pytest.mark.parametrize("horizon,start", [(30, "cold"), (30, "warm"),
+                                           (10, "warm")])
+def test_admm_step_emulated_matches_plain(admm_lib, trot3, monkeypatch,
+                                          horizon, start):
+    """Thirty ADMM iterations (rho 1e-3, the cell's) on the condensed QP of
+    the port's own `mpc_prepare` (a trotting Go1 batch of 3, so some legs
+    swing over the horizon), with per-scenario mu and fz_max, cold or warm
+    from a plain solve: K5's plain version and the emulated step kernel
+    against the plain solve, in float32. The kernel rounds every product
+    and sum alone, in the torch operations' order (the 3- and 6-term
+    products summed from the first term on, as torch's small batched
+    products sum them on the CPU), so the emulation reproduces the plain
+    solve's bits here. The tolerance, 5e-4 of each array's largest entry,
+    leaves room for a torch that sums those products in another order or
+    with FMAs: the iterations carry one rounding more or less in every
+    product to at most 1.2e-4 of it after thirty (u 7e-5, x 1.2e-4, both
+    products summed in float64 and rounded once, on these QPs)."""
+    loop, params, pattern = trot3
+    _, stage = convex_mpc.mpc_prepare(loop.controller, params, pattern,
+                                      0.01, horizon=horizon)
+    qp = convex_mpc.build_condensed_from_stage(stage, 0.01)
+    assert 0.0 < float(qp.contact.float().mean()) < 1.0
+    args = (qp.P, qp.q, torch.tensor([0.35, 0.6, 0.9]),
+            torch.tensor([140.0, 180.0, 250.0]), qp.contact)
+    kw = dict(iters=30, rho=1e-3)
+    warm = (admm.solve_qp_admm_batched(*args, **kw).warm
+            if start == "warm" else None)
+    want = admm.solve_qp_admm_batched(*args, warm=warm, **kw)
+    calls = []
+    monkeypatch.setattr(admm_kernel, "admm_step",
+                        _emulated_step(admm_lib, calls))
+    got = admm.solve_qp_admm_batched(*args, warm=warm, **kw)
+    assert calls == [False] + [True] * 30
+    assert float(want.u.abs().max()) > 10.0
+    for a, b in zip((got.u, *got.warm), (want.u, *want.warm)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 5e-4 * float(b.abs().max())
+    print(f"H={horizon} {start}: bit for bit "
+          f"{all(torch.equal(a, b) for a, b in zip(got.warm, want.warm))}")
