@@ -42,36 +42,31 @@
 // memory) spent 128k cycles a stage-sweep, 40 % of it in the Cholesky and
 // the solve (PERF.md).
 //
-// Two variants, one body (`sweeps<Variant>`): every element of every
-// product, the Cholesky, the solve, each candidate and the argmin are the
-// same device functions with the same operations in the same order, so
-// the two agree bit for bit; they differ only in how a scenario maps onto
-// the SM. The wrapper (ops/ci_kernel.py) launches the batch variant when
-// the batch is past the latency variant's one wave and the batch variant
-// holds more scenarios an SM at that H (cudaOccupancyMaxActiveBlocks-
-// PerMultiprocessor, ci_sweeps_blocks_per_sm).
+// Two variants, one body (`sweeps<Variant>`) and one shared-memory
+// layout: every element of every product, the Cholesky, the solve, each
+// candidate and the argmin are the same device functions with the same
+// operations in the same order, so the two agree bit for bit; they differ
+// only in how many threads a scenario takes and how those split the work.
+// The wrapper (ops/ci_kernel.py) launches the batch variant when the batch
+// is past the latency variant's one wave and the batch variant holds more
+// scenarios an SM at that H (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// ci_sweeps_blocks_per_sm).
 // - `ci_sweeps`, the latency variant (B = 1 to a wave): a block of 6 warps
-//   (192 threads) a scenario, more of the SM on each scenario. Its shared
-//   memory holds, for the whole launch, the nominal Z and U, the
-//   references, the gain cache K (H x 24 x 25) and kff, the stage matrices,
-//   the dense Fz, Fu and five candidate trajectories (as the TPU kernel
-//   keeps them in VMEM): 73 KB at H=10, 80 KB at H=12. The largest horizon
-//   that fits the 227 KB of a block is ci_sweeps_max_h(), 50; the wrapper
-//   refuses a larger one (the dispatch sends K7 H <= 12). At 150 registers
-//   a thread, two blocks share an SM: 264 scenarios a wave on 132 SMs.
+//   (192 threads) a scenario, more of the SM on each scenario. At 149
+//   registers a thread, two blocks share an SM: 264 scenarios a wave on
+//   132 SMs.
 // - `ci_sweeps_batch`, the batch variant (past a wave): a block of 3 warps
-//   (96 threads) a scenario, at most 168 registers a thread and 49 KB of
-//   shared memory at H=10 (54 KB at H=12), so that four blocks share an
-//   SM. Its thread t owns row t / 4 and columns t % 4 + 4 m (m < 6) of
-//   every 24x24 result. It keeps Fz, Fu only by column (the nonzeros).
-//   While warp 0 factors and solves, warps 1-2 build the next stage's
-//   columns and feet and then, after a barrier of their own, its Fu'Fu and
-//   Fu'Fz (the dense products' terms, read from the columns), into that
-//   stage's L and R, to which its step 3 adds the rest in place. The
-//   stage scratch is aliased by lifetime (Batch below), and the five
-//   candidate trajectories lie over all of it (dead by then); the
-//   candidates run two at once on warps 0 and 1, interleaved (warp 2
-//   runs candidate 2 twice: cheaper than a branch).
+//   (96 threads) a scenario and at most 168 registers a thread, so that
+//   four blocks share an SM.
+// The layout (Fixed below): a block's shared memory holds, for the whole
+// launch, the nominal Z and U, the references, the gain cache K (H x 24 x
+// 25) and kff (as the TPU kernel keeps them in VMEM), and the stage
+// scratch: the 24x24 stage matrices, aliased by lifetime, and one stage's
+// Fz, Fu by column (the nonzeros) and feet. The five candidate
+// trajectories lie over the stage matrices (dead by then) where they fit
+// (H <= 19), else after the rest. 49 KB at H=10, 54 KB at H=12; the
+// largest horizon that fits the 227 KB of a block is ci_sweeps_max_h(),
+// 54; the wrapper refuses a larger one (the dispatch sends K7 H <= 12).
 // Design, both variants:
 // - The Q terms are the dense products F'(Vxx F) of the plain version, but
 //   summed over the nonzeros of Fz = I + dt S and Fu = dt T only: a column
@@ -83,12 +78,16 @@
 //   but rounds otherwise. Under either, about one scenario in a few
 //   hundred sits near a line-search tie and takes another path than the
 //   plain version in float32, as any change of rounding makes it do;
-//   PERF.md, tools/k7_accuracy.py.) The warps that wait on the Cholesky
-//   build the next stage's Fz, Fu (by column, and dense in the latency
-//   variant) and its feet's quadratization. A thread owns one row and
-//   every CW-th column of each 24x24 result (CW = 8 latency, 4 batch). The
-//   three dense products of the value update, K'Quu, (K'Quu) K and K'Qux,
-//   are split the same way, 24 FMAs an element.
+//   PERF.md, tools/k7_accuracy.py.) The warps after warp 0, which wait on
+//   its Cholesky, build the next stage's Fz, Fu by column and its feet's
+//   quadratization, and then, after a barrier of their own, its Fu'Fu and
+//   Fu'Fz (the dense products' terms, read from the columns) into that
+//   stage's L and R, to which its step 3 adds the rest in place. Thread t
+//   owns row t / CW and columns t % CW + CW m (m < N / CW) of every 24x24
+//   result (CW = 8 latency, 4 batch). The three dense products of the
+//   value update, K'Quu, (K'Quu) K and K'Qux, are split the same way, 24
+//   FMAs an element (K'Quu and K'Qux where N / CW is even: columns
+//   (t % CW) N / CW + m, in pairs).
 // - The 24x24 Cholesky runs on warp 0 in registers, lane i holding row i,
 //   right-looking with shuffles (K4's n <= 32 variant, csrc/chol_factor.cu),
 //   sqrtf and a true reciprocal, so a non-positive pivot gives NaN and the
@@ -96,15 +95,17 @@
 //   warp, a lane a column, the column in registers, a __syncwarp a step
 //   (without it the compiler hoists every load of L and spills).
 // - The five line-search candidates run a warp each (batch: warps 0 and 1
-//   two each, interleaved), each writing its trajectory into its own slot:
-//   one pass a sweep instead of the old kernel's six. The feet's costs are summed after the rollout, a
-//   (stage, foot) a lane. After one block barrier every thread picks the
-//   winner by the rule above and the block copies its slot into the
-//   nominal, so the committed trajectory is bit for bit the one that was
-//   costed.
-// - Barriers are __syncthreads (7 a backward stage) and __syncwarp; every
-//   thread of a block runs every barrier (a block is one scenario, so
-//   there is no ragged tail and no early exit).
+//   two each, interleaved; warp 2 runs candidate 2 twice, cheaper than a
+//   branch), each writing its trajectory into its own slot: one pass a
+//   sweep instead of the old kernel's six. The feet's costs are summed
+//   after the rollout, a (stage, foot) a lane. After one block barrier
+//   every thread picks the winner by the rule above and the block copies
+//   its slot into the nominal, so the committed trajectory is bit for bit
+//   the one that was costed.
+// - Barriers are __syncthreads (7 a backward stage), one named barrier of
+//   the warps after warp 0 (prep_sync, once a stage) and __syncwarp; every
+//   thread of a block runs every barrier it is counted in (a block is one
+//   scenario, so there is no ragged tail and no early exit).
 // - Register arrays are indexed by unrolled constants only (no stack
 //   frame, no spills: chip_smoke.py gates on it for both variants).
 // All arithmetic is float32 on the CUDA cores: the dense products left are
@@ -124,10 +125,10 @@
 // so the candidates' span is the alpha = 1 warp's pass and its wait; in
 // the batch variant warp 0's two rounds).
 //   K7_SPAN(0): loads + initial rollout
-//   K7_SPAN(1): bwd: terminal value + stage H-1's Fz, Fu, quad_foot
+//   K7_SPAN(1): bwd: terminal value + stage H-1's columns, feet, Fu'Fu
 //   K7_SPAN(2): bwd: Vxx Fz, Vxx Fu, Qx, Qu
 //   K7_SPAN(3): bwd: Qxx, Quu, Qux + regularized
-//   K7_SPAN(4): bwd: Cholesky (beside it the next stage's Fz, Fu, feet)
+//   K7_SPAN(4): bwd: Cholesky (beside it the next stage's columns, feet)
 //   K7_SPAN(5): bwd: 25-column solve + guard + gain store
 //   K7_SPAN(6): bwd: K'Quu, K'Qux
 //   K7_SPAN(7): bwd: (K'Quu) K, Vx
@@ -175,145 +176,61 @@ struct StageCols {
   float hf[4][NHF], gf[4][NGF];
 };
 
-// the latency variant's stage: also the dense Jacobians
-struct StageT {
-  float Fz[N * LD], Fu[N * LD];      // Fz = I + dt S, Fu = dt T
-  StageCols c;
-};
-
-// the horizon-independent part of a latency block's shared memory
+// A block's horizon-independent shared memory: the stage matrices by role,
+// then what the candidates leave alone. Lifetimes within stage k (steps of
+// `backward`): Vxx is read in 2 and must outlive 7 (a rejected update
+// keeps it); T1 = Vxx Fz and T2 = Vxx Fu live 2-3; Qxx 3-6; Quu 3-5; Qux
+// 3-6; L = Quu + reg I + state_reg Fu'Fu (then its factor) and R = [Qu |
+// Qux + state_reg Fu'Fz] 3-4; W = K'Quu and P = K'Qux 5-6; Y = Qxx + K'Quu
+// K + P + P' 6-7; the update is written in 7. The warps after warp 0 build
+// Fu'Fu and Fu'Fz of stage k - 1 in step 4 of stage k, where stage k - 1's
+// L and R go; step 3 of stage k - 1 adds the rest to them in place. So Qxx
+// is built in the buffer the update goes to, Y over Quu; the gain systems
+// of stages k and k - 1 take the two pairs LR[k % 2] and LR[(k - 1) % 2],
+// stage k's W and P lie over its L and R, its T1 and T2 over the other
+// pair.
 struct Fixed {
-  float V[2][N * LD];        // Vxx, double-buffered (kept only if finite)
-  float Y[N * LD];           // T1 = Vxx Fz, then Qxx + K'Quu K + P + P'
-  float W[N * LD];           // T2 = Vxx Fu, then K'Quu
-  float P[N * LD];           // K'Qux
-  float Qxx[N * LD], Quu[N * LD], Qux[N * LD];
-  float L[N * LDR];          // Quu + reg I + state_reg Fu'Fu, then its factor
-  float R[N * LDR];          // [Qu | Qux + state_reg Fu'Fz]
-  float Vx[2][N];
-  float q[2 * N];            // Qx, Qu
-  float linv[N];             // 1 / L[i][i]
-  StageT st[2];              // stage k's in st[k % 2]
-  Consts k;
-  float ccost[NALPHA];
-};
-
-// the horizon-independent part of a batch block's shared memory: the
-// stage matrices by role (Batch below), then what the candidates leave
-// alone
-struct FixedB {
   float A[2][N * LD];        // Vxx and Qxx, by turns
   float LR[2][2][N * LDR];   // two pairs of gain systems (L, R), by stage
   float G[N * LD];           // Quu, then Y
   float Hq[N * LD];          // Qux
   float Vx[2][N];
-  float q[2 * N];
-  float linv[N];
+  float q[2 * N];            // Qx, Qu
+  float linv[N];             // 1 / L[i][i]
   StageCols st;              // one stage: built after the last read of
                              // the one before
   Consts k;
   float ccost[NALPHA];
+  // the stage's columns and feet. Read through this call, not as `st`: a
+  // direct read folds st's offset into step 3's loads and compiles the
+  // batch variant to other code (with a branch in place of cand_slots'
+  // select, 0.6 % slower at B=4096 on an H100)
+  __device__ __forceinline__ StageCols& stage() { return st; }
 };
 
 // How a variant maps a scenario onto its block: NT threads; thread t owns
-// row t / CW and columns t % CW + CW m (m < N / CW) of every 24x24 result
-// (the batch variant's step 5: columns (t % CW) N / CW + m, in pairs);
+// row t / CW and columns t % CW + CW m (m < N / CW) of every 24x24 result;
 // threads 0..CT-1 of the warps that build a stage run its columns,
-// threads QF..QF+3 its feet; steps 2 and 3 unroll MU columns. BATCH: Fz,
-// Fu kept by column only, and Fu'Fu, Fu'Fz built with the stage (below).
-// Its shared memory by role:
-// V(cur) is Vxx, V(cur ^ 1) where its update goes, Qxx(cur) where Qxx is
-// built; stage k's T1 = Vxx Fz, T2 = Vxx Fu, L = Quu + reg I + state_reg
-// Fu'Fu (then its factor), R = [Qu | Qux + state_reg Fu'Fz], W = K'Quu,
-// P = K'Qux, Y = Qxx + K'Quu K + P + P'; st(k) holds stage k's columns,
-// Fz(k), Fu(k) its dense Jacobians.
+// threads QF..QF+3 its feet; steps 2 and 3 unroll MU columns.
 struct Latency {
   static constexpr int NT = 192;        // 6 warps
   static constexpr int CW = 8;
   static constexpr int CT = 2 * N;
   static constexpr int QF = 4 * WARP;
   static constexpr int MU = 1;
-  static constexpr bool BATCH = false;
-  using F = Fixed;
-  static __device__ __forceinline__ float* V(F& s, int cur) {
-    return s.V[cur];
-  }
-  static __device__ __forceinline__ float* Qxx(F& s, int) { return s.Qxx; }
-  static __device__ __forceinline__ float* T1(F& s, int) { return s.Y; }
-  static __device__ __forceinline__ float* T2(F& s, int) { return s.W; }
-  static __device__ __forceinline__ float* L(F& s, int) { return s.L; }
-  static __device__ __forceinline__ float* R(F& s, int) { return s.R; }
-  static __device__ __forceinline__ float* W(F& s, int) { return s.W; }
-  static __device__ __forceinline__ float* P(F& s, int) { return s.P; }
-  static __device__ __forceinline__ float* Y(F& s) { return s.Y; }
-  static __device__ __forceinline__ float* Quu(F& s) { return s.Quu; }
-  static __device__ __forceinline__ float* Qux(F& s) { return s.Qux; }
-  static __device__ __forceinline__ StageCols& st(F& s, int k) {
-    return s.st[k % 2].c;
-  }
-  static __device__ __forceinline__ float* Fz(F& s, int k) {
-    return s.st[k % 2].Fz;
-  }
-  static __device__ __forceinline__ float* Fu(F& s, int k) {
-    return s.st[k % 2].Fu;
-  }
-  // the candidates' slots: after the horizon-dependent part
-  static __device__ __forceinline__ float* cand(F&, float* after, int) {
-    return after;
-  }
 };
 
-// Lifetimes within stage k (steps of `backward`): Vxx is read in 2 and
-// must outlive 7 (a rejected update keeps it); T1, T2 live 2-3; Qxx 3-6;
-// Quu 3-5; Qux 3-6; L, R 3-4; W, P 5-6; Y 6-7; the update is written in 7.
-// The batch variant's warps 1-2 build Fu'Fu and Fu'Fz of stage k - 1 in
-// step 4 of stage k, where stage k - 1's L and R go; step 3 of stage k - 1
-// adds the rest to them in place. So Qxx is built in the buffer the
-// update goes to, Y over Quu; the gain systems of stages k and k - 1 take
-// the two pairs LR[k % 2] and LR[(k - 1) % 2], stage k's W and P lie over
-// its L and R, its T1 and T2 over the other pair.
 struct Batch {
   static constexpr int NT = 96;         // 3 warps
   static constexpr int CW = 4;
   static constexpr int CT = WARP;
   static constexpr int QF = WARP;
   static constexpr int MU = N / CW;
-  static constexpr bool BATCH = true;
   static constexpr int MIN_BLOCKS = 4;  // an SM: registers <= 168
-  using F = FixedB;
-  static __device__ __forceinline__ float* V(F& s, int cur) {
-    return s.A[cur];
-  }
-  static __device__ __forceinline__ float* Qxx(F& s, int cur) {
-    return s.A[cur ^ 1];
-  }
-  static __device__ __forceinline__ float* T1(F& s, int k) {
-    return s.LR[(k & 1) ^ 1][0];
-  }
-  static __device__ __forceinline__ float* T2(F& s, int k) {
-    return s.LR[(k & 1) ^ 1][1];
-  }
-  static __device__ __forceinline__ float* L(F& s, int k) {
-    return s.LR[k & 1][0];
-  }
-  static __device__ __forceinline__ float* R(F& s, int k) {
-    return s.LR[k & 1][1];
-  }
-  static __device__ __forceinline__ float* W(F& s, int k) { return L(s, k); }
-  static __device__ __forceinline__ float* P(F& s, int k) { return R(s, k); }
-  static __device__ __forceinline__ float* Y(F& s) { return s.G; }
-  static __device__ __forceinline__ float* Quu(F& s) { return s.G; }
-  static __device__ __forceinline__ float* Qux(F& s) { return s.Hq; }
-  static __device__ __forceinline__ StageCols& st(F& s, int) { return s.st; }
-  static __device__ __forceinline__ float* Fz(F&, int) { return nullptr; }
-  static __device__ __forceinline__ float* Fu(F&, int) { return nullptr; }
-  // the candidates' slots: over the stage matrices (dead by then) where
-  // they fit, else after the horizon-dependent part
-  static __device__ __forceinline__ float* cand(F& s, float* after, int H);
 };
 
-// floats of the stage matrices the batch variant's candidates lie over
-constexpr size_t SCRATCH_B = 4 * N * LD + 4 * N * LDR;
+// floats of the stage matrices the candidates lie over
+constexpr size_t SCRATCH = 4 * N * LD + 4 * N * LDR;
 
 // floats of five candidate (Z, U)
 __host__ __device__ constexpr size_t cand_floats(int H) {
@@ -327,24 +244,22 @@ __host__ __device__ constexpr size_t kept_floats(int H) {
          + (size_t)H * N + (size_t)H * 2 * N + (size_t)H * 4;
 }
 
-// the batch variant's candidates lie over its stage scratch where they fit
+// the candidates lie over the stage scratch where they fit
 __host__ __device__ constexpr bool cand_over_scratch(int H) {
-  return cand_floats(H) <= SCRATCH_B;
+  return cand_floats(H) <= SCRATCH;
 }
 
-__device__ __forceinline__ float* Batch::cand(F& s, float* after, int H) {
+// the candidates' slots: over the stage scratch where they fit, else
+// `after` (computed by the caller, so that the choice is a select)
+__device__ __forceinline__ float* cand_slots(Fixed& s, float* after, int H) {
   return cand_over_scratch(H) ? s.A[0] : after;
 }
 
-// a launch's dynamic shared memory a block, by variant
+// a launch's dynamic shared memory a block
 __host__ __device__ constexpr size_t smem_bytes(int H) {
-  return sizeof(Fixed) + (kept_floats(H) + cand_floats(H)) * sizeof(float);
-}
-
-__host__ __device__ constexpr size_t smem_bytes_batch(int H) {
-  return sizeof(FixedB) + (kept_floats(H) + (cand_over_scratch(H)
-                                             ? 0 : cand_floats(H)))
-                          * sizeof(float);
+  return sizeof(Fixed) + (kept_floats(H) + (cand_over_scratch(H)
+                                            ? 0 : cand_floats(H)))
+                         * sizeof(float);
 }
 
 // per-foot Hessian entries in StageCols::hf
@@ -367,9 +282,8 @@ struct Args {
 };
 
 // a block's shared memory, by part
-template <class Var>
 struct Ctx {
-  typename Var::F* s;
+  Fixed* s;
   float* Kc;     // (H, 24, LDR)
   float* kff;    // (H, 24)
   float* Zn;     // (H+1, 24) nominal
@@ -720,17 +634,17 @@ __device__ __forceinline__ int fu_rows(int c, int (&q)[4]) {
   return 4;
 }
 
-// a barrier of the warps after warp 0 of a batch block (named barrier 1;
-// __syncthreads is 0)
-static_assert(Batch::NT - WARP == 64, "prep_sync counts 64 threads");
+// a barrier of the NT - WARP threads after warp 0 of a block of NT
+// (named barrier 1; __syncthreads is 0)
+template <int NT>
 __device__ __forceinline__ void prep_sync() {
-  asm volatile("bar.sync 1, 64;" ::: "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(NT - WARP) : "memory");
 }
 
 // (Fu'Fu)(pi, j) and (Fu'Fz)(pi, j) from stage st's columns: the sums over
 // the rows of Fu's column pi, ascending (fu_rows), of uv[pi][i] times the
-// entry of Fu, Fz at (that row, j), as the latency variant's step 3 sums
-// the dense products term for term; an entry off column j's rows
+// entry of Fu, Fz at (that row, j), term for term as the dense products
+// sum them; an entry off column j's rows
 // (fu_rows(j), fz_rows(j)) is the dense matrices' exact 0
 __device__ __forceinline__ void fu_products(const StageCols& st, int pi,
                                             int j, float& ff, float& fz) {
@@ -779,30 +693,18 @@ __device__ __forceinline__ void column_values(const Consts& s, StageCols& st,
 }
 
 // the warps after warp 0: stage k's Jacobians by column (the rows that can
-// be nonzero, ascending) and its feet's quadratization into st(k); the
-// latency variant also its dense Fz, Fu; the batch variant then, after a
-// barrier of its two warps, also Fu'Fu and Fu'Fz (the dense products,
-// term for term as the latency variant's step 3 sums them) into stage k's
-// L and R
+// be nonzero, ascending) and its feet's quadratization into st, then,
+// after a barrier of their own, Fu'Fu and Fu'Fz (the dense products, term
+// for term) into stage k's L and R
 template <class Var>
-__device__ void stage_prep(const Ctx<Var>& c, const Args& p, int k,
-                           float rho) {
-  typename Var::F& f = *c.s;
+__device__ void stage_prep(const Ctx& c, const Args& p, int k, float rho) {
+  Fixed& f = *c.s;
   const Consts& s = f.k;
-  StageCols& st = Var::st(f, k);
+  StageCols& st = f.stage();
   const int t = threadIdx.x - WARP;
   const float dt = p.dt, s_f = p.s_f;
   const float* z = c.Zn + k * N;
   const float* u = c.Un + k * N;
-  if constexpr (!Var::BATCH) {
-    float* Fz = Var::Fz(f, k);
-    float* Fu = Var::Fu(f, k);
-    for (int e = t; e < N * LD; e += Var::NT - WARP) {
-      const int q = e / LD, col = e % LD;
-      Fz[e] = fz_entry(s, z, u, q, col, dt, s_f);
-      Fu[e] = fu_entry(s, z, q, col, dt, s_f);
-    }
-  }
   if (t < Var::CT) {
     for (int i = t; i < 2 * N; i += Var::CT)
       column_values(s, st, z, u, i, dt, s_f);
@@ -810,30 +712,28 @@ __device__ void stage_prep(const Ctx<Var>& c, const Args& p, int k,
     const int ft = t - Var::QF;
     quad_foot(s, st, z, u, c.Fm[k * 4 + ft], ft, rho, s_f);
   }
-  if constexpr (Var::BATCH) {
-    prep_sync();
-    float* FF = Var::L(f, k);
-    float* FZ = Var::R(f, k);
-    for (int e = t; e < N * N; e += Var::NT - WARP) {
-      const int pi = e / N, j = e % N;
-      float ff, fz;
-      fu_products(st, pi, j, ff, fz);
-      FF[pi * LDR + j] = ff;
-      FZ[pi * LDR + 1 + j] = fz;
-    }
+  prep_sync<Var::NT>();
+  float* FF = f.LR[k & 1][0];
+  float* FZ = f.LR[k & 1][1];
+  for (int e = t; e < N * N; e += Var::NT - WARP) {
+    const int pi = e / N, j = e % N;
+    float ff, fz;
+    fu_products(st, pi, j, ff, fz);
+    FF[pi * LDR + j] = ff;
+    FZ[pi * LDR + 1 + j] = fz;
   }
 }
 
 // one backward Riccati pass over the H stages at relaxation rho: the gains
 // into c.Kc, c.kff
 template <class Var>
-__device__ void backward(const Ctx<Var>& c, const Args& p, float rho) {
+__device__ void backward(const Ctx& c, const Args& p, float rho) {
   constexpr int NT = Var::NT, CW = Var::CW, NM = N / CW;
-  typename Var::F& f = *c.s;
+  Fixed& f = *c.s;
   const Consts& s = f.k;
-  float* const Y = Var::Y(f);
-  float* const Quu = Var::Quu(f);
-  float* const Qux = Var::Qux(f);
+  float* const Y = f.G;
+  float* const Quu = f.G;
+  float* const Qux = f.Hq;
   const int t = threadIdx.x;
   const int pi = t / CW, pg = t % CW;       // this thread's row, columns
   const int H = p.H;
@@ -843,7 +743,7 @@ __device__ void backward(const Ctx<Var>& c, const Args& p, float rho) {
   // terminal value: hT = track_h on pos, eul, v; 0 elsewhere
   for (int e = t; e < N * LD; e += NT) {
     const int i = e / LD, j = e % LD;
-    Var::V(f, 0)[e] = (i == j && i < 9) ? th[i] : 0.0f;
+    f.A[0][e] = (i == j && i < 9) ? th[i] : 0.0f;
   }
   if (t < N) f.Vx[0][t] = (t < 9 ? th[t] : 0.0f) * (c.Zn[H * N + t]
                                                     - s.refT[t]);
@@ -854,18 +754,18 @@ __device__ void backward(const Ctx<Var>& c, const Args& p, float rho) {
     const float* z = c.Zn + k * N;
     const float* u = c.Un + k * N;
     const float* ref = c.Ref + k * 2 * N;
-    const StageCols& sg = Var::st(f, k);
-    float* const T1 = Var::T1(f, k);
-    float* const T2 = Var::T2(f, k);
-    float* const L = Var::L(f, k);
-    float* const R = Var::R(f, k);
-    float* const W = Var::W(f, k);
-    float* const P = Var::P(f, k);
+    const StageCols& sg = f.stage();
+    float* const T1 = f.LR[(k & 1) ^ 1][0];
+    float* const T2 = f.LR[(k & 1) ^ 1][1];
+    float* const L = f.LR[k & 1][0];
+    float* const R = f.LR[k & 1][1];
+    float* const W = L;
+    float* const P = R;
     // 2. T1 = Vxx Fz, T2 = Vxx Fu; Qx = g_x + Fz'Vx, Qu = g_u + Fu'Vx.
     // Every product is the dense one with its zero terms left out (the
     // nonzeros of a column of Fz or Fu, ascending), so it rounds as the
     // plain version's dense product does.
-    const float* V = Var::V(f, cur);
+    const float* V = f.A[cur];
     const float* Vx = f.Vx[cur];
 #pragma unroll (Var::MU)
     for (int m = 0; m < NM; ++m) {
@@ -901,18 +801,15 @@ __device__ void backward(const Ctx<Var>& c, const Args& p, float rho) {
 
     // 3. Qxx = Fz'T1 + Hxx, Quu = Fu'T2 + Huu, Qux = Fu'T1 + Hux;
     // L = Quu + reg I + state_reg Fu'Fu, R = [Qu | Qux + state_reg Fu'Fz]
-    // (the batch variant's Fu'Fu, Fu'Fz already in L, R)
-    float* Qxx = Var::Qxx(f, cur);
+    // (Fu'Fu, Fu'Fz already in L, R)
+    float* Qxx = f.A[cur ^ 1];
     int rz[4], ru[4];
     const int nz = fz_rows(pi, rz), nu = fu_rows(pi, ru);
 #pragma unroll (Var::MU)
     for (int m = 0; m < NM; ++m) {
       const int j = pg + CW * m, ij = pi * LD + j;
-      float qxx = 0.0f, quu = 0.0f, qux = 0.0f, ff = 0.0f, fz = 0.0f;
-      if constexpr (Var::BATCH) {
-        ff = L[pi * LDR + j];
-        fz = R[pi * LDR + 1 + j];
-      }
+      float qxx = 0.0f, quu = 0.0f, qux = 0.0f;
+      const float ff = L[pi * LDR + j], fz = R[pi * LDR + 1 + j];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (e < nz) qxx = fmaf(sg.zv[pi][e], T1[rz[e] * LD + j], qxx);
@@ -921,10 +818,6 @@ __device__ void backward(const Ctx<Var>& c, const Args& p, float rho) {
           const float v = sg.uv[pi][e];
           quu = fmaf(v, T2[q], quu);
           qux = fmaf(v, T1[q], qux);
-          if constexpr (!Var::BATCH) {
-            ff = fmaf(v, Var::Fu(f, k)[q], ff);
-            fz = fmaf(v, Var::Fz(f, k)[q], fz);
-          }
         }
       }
       qxx += hxx(s, sg, pi, j);
@@ -941,8 +834,8 @@ __device__ void backward(const Ctx<Var>& c, const Args& p, float rho) {
     __syncthreads();
     K7_SPAN(3);
 
-    // 4. warp 0: the gains; beside it, the next stage's S, T rows and
-    // quadratization
+    // 4. warp 0: the gains; beside it, the next stage's columns, feet,
+    // Fu'Fu and Fu'Fz
     float* K = c.Kc + k * N * LDR;
     if (t < WARP) gain_solve(L, R, f.linv, K, c.kff + k * N);
     else if (k > 0) stage_prep<Var>(c, p, k - 1, rho);
@@ -950,7 +843,7 @@ __device__ void backward(const Ctx<Var>& c, const Args& p, float rho) {
     K7_SPAN(5);
 
     // 5. the value update (unregularized Quu, Qux): W = K'Quu, P = K'Qux
-    if constexpr (Var::BATCH) {
+    if constexpr (NM % 2 == 0) {
       // a thread's columns side by side, read and written in pairs
       const int c0 = pg * NM;
       float kq[NM], kp[NM];
@@ -1036,7 +929,7 @@ __device__ void backward(const Ctx<Var>& c, const Args& p, float rho) {
     K7_SPAN(7);
 
     // 7. Vxx2 = (Y + Y') / 2, kept with Vx2 only if both are finite
-    float* Vn = Var::V(f, cur ^ 1);
+    float* Vn = f.A[cur ^ 1];
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
       const int j = pg + CW * m;
@@ -1052,8 +945,8 @@ __device__ void backward(const Ctx<Var>& c, const Args& p, float rho) {
 // the forward passes of the NC candidates a[i] on one warp, interleaved
 // (lane r < 24 owns row r of each) under step ALPHAS[a[i]]: each trajectory
 // into its slot, each total cost into ccost[a[i]]
-template <class Var, int NC>
-__device__ void candidates(const Ctx<Var>& c, const Args& p,
+template <int NC>
+__device__ void candidates(const Ctx& c, const Args& p,
                            const int (&a)[NC], float rho) {
   const Consts& s = c.s->k;
   const int r = threadIdx.x % WARP;
@@ -1132,15 +1025,15 @@ __device__ __forceinline__ void sweeps(const Args& p, float* base) {
   const int H = p.H;
   const int b = blockIdx.x;
   const int t = threadIdx.x;
-  Ctx<Var> c;
-  c.s = reinterpret_cast<typename Var::F*>(base);
-  c.Kc = base + sizeof(typename Var::F) / sizeof(float);
+  Ctx c;
+  c.s = reinterpret_cast<Fixed*>(base);
+  c.Kc = base + sizeof(Fixed) / sizeof(float);
   c.kff = c.Kc + H * N * LDR;
   c.Zn = c.kff + H * N;
   c.Un = c.Zn + (H + 1) * N;
   c.Ref = c.Un + H * N;
   c.Fm = c.Ref + H * 2 * N;
-  c.Zc = Var::cand(*c.s, c.Fm + H * 4, H);
+  c.Zc = cand_slots(*c.s, c.Fm + H * 4, H);
   c.Uc = c.Zc + NALPHA * (H + 1) * N;
   Consts& s = c.s->k;
   K7_SPANS_BEGIN
@@ -1186,7 +1079,7 @@ __device__ __forceinline__ void sweeps(const Args& p, float* base) {
 #pragma unroll
       for (int i = 0; i < NC; ++i)
         a[i] = w + i * NW < NALPHA ? w + i * NW : w;
-      candidates<Var, NC>(c, p, a, rho);
+      candidates<NC>(c, p, a, rho);
     }
     __syncthreads();
     K7_SPAN(9);
@@ -1229,8 +1122,8 @@ ci_sweeps_batch(Args p) {
 
 }  // namespace
 
-// The largest horizon whose launch fits a block's shared memory (the
-// latency variant's, the larger).
+// The largest horizon whose launch fits a block's shared memory (either
+// variant's: they share the layout).
 extern "C" int ci_sweeps_max_h() {
   int H = 0;
   while (smem_bytes(H + 1) <= SMEM_MAX) ++H;
@@ -1243,10 +1136,6 @@ namespace {
 const void* kernel_of(int batch) {
   return batch ? reinterpret_cast<const void*>(ci_sweeps_batch)
                : reinterpret_cast<const void*>(ci_sweeps);
-}
-
-size_t smem_of(int batch, int H) {
-  return batch ? smem_bytes_batch(H) : smem_bytes(H);
 }
 
 // Raise a variant's dynamic shared-memory limit to the block's share less
@@ -1282,12 +1171,12 @@ int launch(int batch, const float* z0, const float* uh0, const float* ref_zu,
   size_t limit = 0;
   const int err = smem_limit(batch, &limit);
   if (err != 0) return err;
-  if (H < 1 || smem_of(batch, H) > limit) return (int)cudaErrorInvalidValue;
+  if (H < 1 || smem_bytes(H) > limit) return (int)cudaErrorInvalidValue;
   Args p{z0, uh0, ref_zu, refT, f_mask, rho0, iw_inv, misc, U, Z, cost, H,
          iters, dt, s_f, rho_min, reg, state_reg};
   if (batch)
-    ci_sweeps_batch<<<B, Batch::NT, smem_bytes_batch(H),
-                      (cudaStream_t)stream>>>(p);
+    ci_sweeps_batch<<<B, Batch::NT, smem_bytes(H), (cudaStream_t)stream>>>(
+        p);
   else
     ci_sweeps<<<B, Latency::NT, smem_bytes(H), (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
@@ -1297,7 +1186,7 @@ int launch(int batch, const float* z0, const float* uh0, const float* ref_zu,
 
 // The whole sweep loop for B scenarios with horizon H on `stream`, by the
 // latency variant (ci_sweeps_launch) or the batch variant
-// (ci_sweeps_batch_launch); see the header for the layouts. Returns
+// (ci_sweeps_batch_launch); see the header for the layout. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for H outside
 // 1..ci_sweeps_max_h()).
 extern "C" int ci_sweeps_launch(const float* z0, const float* uh0,
@@ -1330,8 +1219,8 @@ extern "C" int ci_sweeps_blocks_per_sm(int H, int batch, int* blocks) {
   const int err = smem_limit(batch, &limit);
   if (err != 0) return err;
   *blocks = 0;
-  if (H < 1 || smem_of(batch, H) > limit) return 0;
+  if (H < 1 || smem_bytes(H) > limit) return 0;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel_of(batch), batch ? Batch::NT : Latency::NT,
-      smem_of(batch, H));
+      smem_bytes(H));
 }

@@ -18,16 +18,17 @@ mass scalars, Iw_inv (B,3,3). Returns (Uh (B,H,24) scaled, Z (B,H+1,24),
 cost (B,)).
 
 The kernel keeps a scenario's whole problem in its block's shared memory,
-so it serves 1 <= H <= `max_horizon()` (50 on an H100); the dispatch
+so it serves 1 <= H <= `max_horizon()` (54 on an H100); the dispatch
 (`mpc/ci_mpc.ci_pallas_available`) sends it H <= 12. It has two variants
-that compute the same numbers bit for bit and map a scenario onto the SM
-differently (csrc/ci_sweeps.cu): the latency variant, a block of six warps
-a scenario, two an SM at H=10; and the batch variant, three warps a
-scenario, four an SM. `ci_sweeps_cuda` launches the batch variant only
-where the batch is past the latency variant's one wave (its resident
-blocks an SM times the SMs) and the batch variant holds more scenarios an
-SM at that H (`residency`); `cuda_build.LAUNCHES` counts every launch
-under "ci_sweeps" and the batch variant's also under "ci_sweeps_batch".
+that share one shared-memory layout, compute the same numbers bit for bit
+and map a scenario onto the SM differently (csrc/ci_sweeps.cu): the
+latency variant, a block of six warps a scenario, two an SM at H=10; and
+the batch variant, three warps a scenario, four an SM. `ci_sweeps_cuda`
+launches the batch variant only where the batch is past the latency
+variant's one wave (its resident blocks an SM times the SMs) and the batch
+variant holds more scenarios an SM at that H (`residency`);
+`cuda_build.LAUNCHES` counts every launch under "ci_sweeps" and the batch
+variant's also under "ci_sweeps_batch".
 """
 
 import ctypes

@@ -360,8 +360,8 @@ def libs(tmp_path_factory):
     # the kernels' dynamic (extern) shared arrays: static buffers here
     ci = _emulated("ci_sweeps", CI_LAUNCH, out, edits=(
         ("extern __shared__ float4 smem4[];", "static float4 smem4[8192];"),
-        ('asm volatile("bar.sync 1, 64;" ::: "memory");',
-         "named_sync(1, 64);")))
+        ('asm volatile("bar.sync 1, %0;" ::"n"(NT - WARP) : "memory");',
+         "named_sync(1, NT - WARP);")))
     for entry in (ci.ci_sweeps_emu, ci.ci_sweeps_batch_emu):
         entry.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                           + [ctypes.c_float] * 5)
