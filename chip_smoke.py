@@ -101,6 +101,9 @@ REPO_K7 = "legged_mpc_control_tpu/ops/ci_pallas.py:641"
 # the ADMM step kernel replaces no Pallas kernel: the JAX package runs the
 # iteration as jnp ops here
 REPO_ADMM = "legged_mpc_control_tpu/mpc/admm.py (jnp ops, no Pallas kernel)"
+# nor does the condensed QP's build: a dense product in the JAX package
+REPO_CONDENSE = ("legged_mpc_control_tpu/mpc/qp_builder.py (jnp ops, no "
+                 "Pallas kernel)")
 CSRC = "legged_mpc_control_tpu_torch/csrc/"
 
 # the least time an H100 SXM could take (its datasheet peaks): bytes
@@ -179,6 +182,34 @@ ADMM_FIRST_FLOP_PER_LEG = 54
 ADMM_STEP_REL_TOL = 2e-6
 # the ADMM cell's (go1_admm_h30.b4096): H=30, rho 1e-3, 30 iterations
 ADMM_H, ADMM_RHO, ADMM_ITERS = 30, 1e-3, 30
+
+
+def condense_work(batch, H):
+    """(bytes, float64 operations) of the build kernel (csrc/condense.cu):
+    it reads x0, x_ref, A_0 whole and A_k[0:3, 6:9] of the later steps, Bm's
+    rows 6:12, contact and the two weight rows, and writes P and q once a
+    scenario. Its operations a scenario: A_0 x0 (288), Mc's running sums
+    (9 (k + 1) a step k); for each block pair j1 <= j2 W (99 a step k >= j2:
+    three rows of three sums, a term each two differences, a product and an
+    FMA), V (18 a column) and the upper triangle's entries (11 each: a
+    product and five FMAs); q's residual sums (48 a step k >= j) and q (48
+    an entry)."""
+    n = 12 * H
+    nbytes = batch * 4 * (12 + n + 144 + 9 * (H - 1) + 72 + 4 * H + 24
+                          + n * n + n)
+    ops = 288 + 9 * H * (H + 1) // 2 + 48 * n
+    for j2 in range(H):
+        ops += 48 * (H - j2)
+        for j1 in range(j2 + 1):
+            ops += 99 * (H - j2) + 18 * 12 + 11 * (144 if j1 < j2 else 78)
+    return nbytes, batch * ops
+
+
+# the build kernel against the plain build in float64 on the same float32
+# inputs (tests/test_torch_cuda.py's test_condense_kernel_matches_plain):
+# every P entry within CONDENSE_ULPS float32 ulps of itself plus
+# CONDENSE_REL of the matrix's largest entry, q within CONDENSE_Q_REL
+CONDENSE_ULPS, CONDENSE_REL, CONDENSE_Q_REL = 2, 1e-9, 1e-6
 
 
 class GateError(RuntimeError):
@@ -324,7 +355,8 @@ GATED = {"riccati_ipm": ("K1", K1_VARIANTS),
          "chol_factor": ("K4", K4_VARIANTS),
          "chol_lanes": ("K5/K6", K56_VARIANTS),
          "ci_sweeps": ("K7", K7_VARIANTS),
-         "admm_step": ("ADMM step", ("admm_step_kernel",))}
+         "admm_step": ("ADMM step", ("admm_step_kernel",)),
+         "condense": ("condense", ("condense_kernel",))}
 
 
 def ptxas_report(log):
@@ -344,7 +376,7 @@ def phase_build():
     from legged_mpc_control_tpu_torch.ops import cuda_build
 
     sources = ("riccati_ipm", "substep_chain", "chol_factor", "chol_lanes",
-               "ci_sweeps", "admm_step")
+               "ci_sweeps", "admm_step", "condense")
     t0 = phase(f"build: nvcc sm_90a, {len(sources)} sources in parallel")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(cuda_build.build, sources))
@@ -790,6 +822,67 @@ def phase_admm_step(dev, card):
     return out
 
 
+def phase_condense(dev, card):
+    """The condensed QP's build kernel against the plain build in float64
+    at the ADMM cell's shape (B=4096, H=30, n=360) on the synthetic trot
+    QP: CONDENSE_ULPS / CONDENSE_REL on P, P exactly symmetric,
+    CONDENSE_Q_REL on q; then the kernel and the plain float32 build timed
+    with CUDA events."""
+    from legged_mpc_control_tpu_torch.ops import condense_kernel
+
+    t0 = phase(f"condense kernel vs plain float64, B={B}, H={ADMM_H}, n="
+               f"{12 * ADMM_H}")
+    params, x0, contact, lin = qp_problem(B, ADMM_H, dev)
+    x_ref, A_seq, Bm = lin(x0)
+    args = (x0, x_ref, A_seq, Bm, contact, params.q_weights,
+            params.r_weights, DT)
+    with launch_counts() as launches:
+        P, q = condense_kernel.condense(*args)
+    check(launches == {"condense": 1}, f"condense: launches {launches}")
+    check(bool(torch.isfinite(P).all()) and bool(torch.isfinite(q).all()),
+          "condense: non-finite P or q")
+    check(torch.equal(P, P.transpose(-1, -2)), "condense: P not symmetric")
+    ulps = err = qrel = 0.0
+    for lo in range(0, B, 512):
+        P64, q64 = condense_kernel.condense_plain(
+            *(t[lo:lo + 512].double() for t in args[:5]),
+            params.q_weights.double(),
+            params.r_weights.double(), DT)
+        d = (P[lo:lo + 512].double() - P64).abs()
+        a = P64.abs().float()
+        ulp = (torch.nextafter(a, torch.full_like(a, float("inf")))
+               - a).double()
+        top = P64.abs().amax((-1, -2), keepdim=True)
+        check(bool((d <= CONDENSE_ULPS * ulp + CONDENSE_REL * top).all()),
+              "condense: P off the float64 build")
+        ulps = max(ulps, float((d / ulp).max()))
+        err = max(err, float(d.max()))
+        dq = (q[lo:lo + 512].double() - q64).abs()
+        qrel = max(qrel, float((dq / (q64.abs()
+                                      + 1e-30 * float(q64.abs().max())))
+                               .max()))
+        check(bool((dq <= CONDENSE_Q_REL * q64.abs()
+                    + 1e-9 * float(q64.abs().max())).all()),
+              "condense: q off the float64 build")
+        del P64, q64, d, a, ulp
+    print(f"   max |P - P64| {ulps:.3f} float32 ulps ({err:.3e}); max "
+          f"|q - q64| / |q64| {qrel:.3e}", flush=True)
+    del P, q
+    nbytes, ops64 = condense_work(B, ADMM_H)
+    out = dict(err=err,
+               ms=cuda_ms(lambda: condense_kernel.condense(*args), reps=20),
+               plain_ms=cuda_ms(
+                   lambda: condense_kernel.condense_plain(*args), reps=3),
+               bound=bound(nbytes, 0, ops64))
+    print(f"   time ({card}): kernel {out['ms']:.4f} ms, plain float32 "
+          f"{out['plain_ms']:.3f} ms, bound {out['bound'][0]:.4f} ms "
+          f"({out['bound'][1]}; {nbytes / 1e9:.3f} GB, {ops64 / 1e9:.2f} "
+          f"GFLOP float64; the kernel at "
+          f"{100 * out['bound'][0] / out['ms']:.1f} % of it)", flush=True)
+    done(t0)
+    return out
+
+
 KF_TOL = {"kf_x": 2e-3}     # tests/test_substep_fused.py's kf1 bracket
 KF_P_TOL = (2e-4, 2e-3)    # (atol, rtol), the same test's covariance bracket
 
@@ -943,7 +1036,7 @@ def phase_chol(dev, card):
     (there float32's backward error, ~n eps K_jj = 7e-6 K_jj, cannot
     reach zero); the residuals are taken over the scenarios both factor.
     Then whole PDIP solves are held by their GRFs, as K1 is."""
-    from legged_mpc_control_tpu_torch.ops import chol_kernel
+    from legged_mpc_control_tpu_torch.ops import chol_kernel, condense_kernel
 
     def finite(M):
         return torch.isfinite(M.reshape(M.shape[0], -1)).all(-1)
@@ -1061,7 +1154,9 @@ def phase_chol(dev, card):
         u_p = condensed_solve(params, contact, lin, x0, 15).u
     p64 = params.replace(**{f: getattr(params, f).double() for f in (
         "q_weights", "r_weights", "mu", "fz_max")})
-    with with_plain(fro_64):
+    # the float64 build is the plain one, by name (the kernel's is float32)
+    with with_plain(fro_64), patched(
+            condense_kernel, condense=condense_kernel.condense_plain):
         u64 = condensed_solve(p64, contact.double(),
                               lambda x: tuple(
                                   a.double() for a in lin(x.float())),
@@ -1227,7 +1322,7 @@ def phase_condensed(dev, card, walked):
             final, _ = roll(walked, params)
             torch.cuda.synchronize()
             elapsed = time.perf_counter() - t1
-        check_launched(launches, ("chol_factor", "chol_solve",
+        check_launched(launches, ("condense", "chol_factor", "chol_solve",
                                   "substep_chain")
                        + (("admm_step",) if solver == "admm" else ()),
                        solver)
@@ -2473,7 +2568,8 @@ def phase_wb(dev, card, gates):
     check(k["ez"] < 0.025, f"EKF z estimate off truth by {k['ez']} m")
     check(k["exy"] < 0.04, f"EKF xy drift {k['exy']} m over 1.2 s")
     check(w["launches"] == {"chol_factor": WBC_TICKS * (15 + 32),
-                            "chol_solve": WBC_TICKS * (30 + 32)},
+                            "chol_solve": WBC_TICKS * (30 + 32),
+                            "condense": WBC_TICKS},
           f"WBC stand: launches {w['launches']}")
     check(w["finite"], "WBC stand: non-finite")
     check(0.26 < w["z"] < 0.30, f"WBC stand: z {w['z']}")
@@ -2577,10 +2673,10 @@ LEAN_LAUNCHES = {"chol_factor": 240 + 32, "chol_solve_multi": 240,
 # from a seed, 24 sweeps; the whole solve in K7_TOL's bracket
 LEAN_B = 64
 # tests/test_lci.py:92-125: A1, 20 stand ticks, then 60 walk ticks of
-# `make_walk_policy(velx=0.25)` (H=8, 12 PDIP iterations: K4 12 and K5 24
-# times a tick at n=96, B=1)
+# `make_walk_policy(velx=0.25)` (H=8, 12 PDIP iterations: the build kernel
+# once, K4 12 and K5 24 times a tick at n=96, B=1)
 LCI_STAND, LCI_WALK, LCI_VELX = 20, 60, 0.25
-LCI_LAUNCHES = {"chol_factor": 12, "chol_solve": 24}
+LCI_LAUNCHES = {"chol_factor": 12, "chol_solve": 24, "condense": 1}
 # tests/test_ci_mpc.py:142-179: A1, 20 stand ticks, then 300 walk ticks of
 # `make_ci_walk_policy(velx=0.10)` (32 sweeps, K7 at B=1 once a tick)
 CI1_STAND, CI1_WALK, CI1_VELX = 20, 300, 0.10
@@ -3715,9 +3811,11 @@ CLI_VELX = {"convex": 0.25, "lci": 0.25, "ci": 0.1}
 def cli_launches(mpc):
     """The launches a CLI run of CLI_TICKS ticks must make, every tick, the
     standing ones too (the LCI seam evaluates its walk policy every tick
-    and picks by mode): the condensed PDIP 15 (K4 15, K5 30); the LCI
-    walk's PDIP 12 at n=96 (K4 12, K5 24); K7 once."""
-    per_tick = {"convex": {"chol_factor": 15, "chol_solve": 30},
+    and picks by mode): the condensed build and PDIP 15 (the build kernel
+    once, K4 15, K5 30); the LCI walk's, PDIP 12 at n=96 (the build once,
+    K4 12, K5 24); K7 once."""
+    per_tick = {"convex": {"chol_factor": 15, "chol_solve": 30,
+                           "condense": 1},
                 "lci": LCI_LAUNCHES, "ci": {"ci_sweeps": 1}}[mpc]
     return {k: v * CLI_TICKS for k, v in per_tick.items()}
 
@@ -3823,6 +3921,7 @@ def main():
     k3 = phase_k3(dev, card)
     chol = phase_chol(dev, card)
     admm_step = phase_admm_step(dev, card)
+    condense = phase_condense(dev, card)
     launches, rate, solves, walked = phase_main(dev, card)
     k3_launches, rate_kf1 = phase_kf1(dev, card)
     loops = phase_condensed(dev, card, walked)
@@ -3893,7 +3992,10 @@ def main():
         row("admm_step", "admm_step.cu", REPO_ADMM,
             loops["admm"]["launches"]["admm_step"], admm_step["err"],
             admm_step["ms"], admm_step["plain_ms"], admm_step["bound"],
-            None)]}
+            None),
+        row("condense", "condense.cu", REPO_CONDENSE,
+            loops["admm"]["launches"]["condense"], condense["err"],
+            condense["ms"], condense["plain_ms"], condense["bound"], None)]}
     # the twin's mass-matrix solve (n=18, B=256): launches a tick and time
     for r, k in zip(kernels["kernels"][3:5], ("4", "5")):
         r["launches_wb"] = wb_k45["launches_wb"][r["name"]]

@@ -17,13 +17,18 @@ forces carry only the R penalty and solve to exactly 0.
 `reference_sparse_qp` writes out the sparse QP itself, in float64 numpy,
 for a float64 oracle to solve.
 
-P and q are large batched matrix products outside any kernel, so
-`torch.matmul` computes them, in full float32 on the card: with TF32 the
-products keep ~3 decimal digits, below this QP's ~1e-4 R regularization,
+On CUDA inputs one hand-written kernel computes P and q straight from the
+per-step factors, in float64, and writes P once and exactly symmetric
+(csrc/condense.cu, `ops/condense_kernel.py`); it takes float32 and a horizon
+up to 64, and the build raises ValueError on any other CUDA input. CPU
+inputs take its plain version, `condense_kernel.condense_plain`, which
+builds S and takes the products with `torch.matmul` (float64 references on
+the card call it by name). On the card it needs full float32 products: with
+TF32 they keep ~3 decimal digits, below this QP's ~1e-4 R regularization,
 and P = S^T Q S comes out indefinite (the JAX package forces
-Precision.HIGHEST for the same reason). `build_condensed_qp` refuses to run
-with TF32 matrix products enabled. From float32 inputs P = S^T Q S is
-summed in float64 and rounded once.
+Precision.HIGHEST for the same reason), so it refuses to run there with
+TF32 matrix products enabled. From float32 inputs both sum P = S^T Q S in
+float64 and round it once.
 """
 
 from typing import NamedTuple
@@ -37,6 +42,7 @@ from legged_mpc_control_tpu_torch.constants import (
     MPC_STATE_DIM,
     NUM_LEG,
 )
+from legged_mpc_control_tpu_torch.ops import condense_kernel
 
 
 class CondensedQP(NamedTuple):
@@ -48,12 +54,6 @@ class CondensedQP(NamedTuple):
     fz_max: torch.Tensor     # normal force cap, scalar or (B,)
 
 
-def _per_scenario(w, B, like):
-    """(12,) or (B, 12) weights as (B, 12)."""
-    return torch.as_tensor(w, dtype=like.dtype,
-                           device=like.device).expand(B, MPC_STATE_DIM)
-
-
 def build_condensed_qp(x0, x_ref, A_seq, Bm, contact, q_weights, r_weights,
                        mu, fz_max, dt) -> CondensedQP:
     """x0 (B,12); x_ref (B,H,12), x_{k+1} tracks x_ref[k]; A_seq
@@ -61,67 +61,9 @@ def build_condensed_qp(x0, x_ref, A_seq, Bm, contact, q_weights, r_weights,
     at the current foot positions (the same for every step, reference:
     ConvexQPSolver.cpp:280-283); contact (B,H,4) in {0,1}; q_weights /
     r_weights (12,) or (B,12); mu, fz_max scalar or (B,); dt the MPC step."""
-    if x_ref.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("the condensed QP needs full float32 matrix "
-                           "products: set torch.backends.cuda.matmul."
-                           "allow_tf32 = False")
-    B, H = x_ref.shape[0], x_ref.shape[1]
+    P, q = condense_kernel.condense(x0, x_ref, A_seq, Bm, contact,
+                                    q_weights, r_weights, dt)
     dtype, dev = x_ref.dtype, x_ref.device
-
-    # Ad_k = I + dt C_k with C_k = [[0, M(yaw_k)], [0, I]] on (omega, v):
-    # C_k C_j = 0, so Phi_{k,j} = I + dt sum_{m=j+1..k} C_m in closed form
-    M_seq = A_seq[:, :, 0:3, 6:9] / dt                    # (B,H,3,3)
-    Mcum = torch.cumsum(M_seq, dim=1)                     # sum_{m<=k} M_m
-
-    # per-step B with the swing legs' columns masked, in its two bands
-    leg_mask = contact.repeat_interleave(3, dim=-1)       # (B,H,12)
-    Bt = Bm[:, None, 6:9, :] * leg_mask[:, :, None, :]    # (B,H,3,12)
-    Bf = Bm[:, None, 9:12, :] * leg_mask[:, :, None, :]   # (B,H,3,12)
-
-    # S[k,j] = Phi_{k,j} B_j for j <= k:
-    #   rows 0:3 = dt (Mcum[k] - Mcum[j]) Bt[j],  rows 3:6 = dt (k-j) Bf[j],
-    #   rows 6:9 = Bt[j],                         rows 9:12 = Bf[j]
-    U = torch.einsum("bkxy,bjyc->bkjxc", Mcum, Bt)        # (B,H,H,3,12)
-    V = torch.einsum("bjxy,bjyc->bjxc", Mcum, Bt)         # (B,H,3,12)
-    ks = torch.arange(H, dtype=dtype, device=dev)
-    kmj = ks[:, None] - ks[None, :]                       # (H,H)
-    tril = (kmj >= 0).to(dtype)[:, :, None, None]
-    rows03 = dt * (U - V[:, None])
-    rows36 = dt * kmj[:, :, None, None] * Bf[:, None]
-    rows69 = Bt[:, None].expand(B, H, H, 3, DIM_GRF)
-    rows912 = Bf[:, None].expand(B, H, H, 3, DIM_GRF)
-    S = torch.cat([rows03, rows36, rows69, rows912], dim=3) * tril
-
-    # free evolution: y0 = Ad_0 x0;
-    # c_k = Phi'_k y0 + (k+1) d - g dt^2 k(k+1)/2 e5
-    y0 = (A_seq[:, 0] @ x0[..., None])[..., 0]            # (B,12)
-    Msum1k = Mcum - Mcum[:, :1]                           # sum_{m=1..k}
-    c = y0[:, None].expand(B, H, MPC_STATE_DIM).clone()
-    c[..., 0:3] += dt * torch.einsum("bkxy,by->bkx", Msum1k, y0[:, 6:9])
-    c[..., 3:6] += dt * ks[:, None] * y0[:, None, 9:12]
-    g_dt = GRAVITY * dt
-    c[..., 11] += -(ks + 1.0) * g_dt
-    c[..., 5] += -g_dt * dt * ks * (ks + 1.0) / 2.0
-
-    # (12H, 12H): rows are states (k), columns inputs (j)
-    Sm = S.permute(0, 1, 3, 2, 4).reshape(B, H * MPC_STATE_DIM, H * DIM_GRF)
-    qbar = _per_scenario(q_weights, B, x_ref).repeat(1, H)     # (B,12H)
-    rbar = _per_scenario(r_weights, B, x_ref).repeat(1, H)
-
-    SQ = Sm * qbar[:, :, None]
-    # float32 sums over the 12H state rows round P by ~7 ulp, which the
-    # Hessian's least eigenvalues (1e-4 of its largest, Jacobi-scaled, at
-    # H=30) carry into the solution: the product accumulates in float64
-    acc = torch.float64 if dtype == torch.float32 else dtype
-    Sa = Sm.to(acc)
-    P = Sa.transpose(-1, -2) @ (Sa * qbar.to(acc)[:, :, None])
-    del Sa
-    P.diagonal(dim1=-2, dim2=-1).add_(rbar)
-    P = P.to(dtype)
-    # exact symmetry: the Cholesky factorizations read one triangle
-    P = 0.5 * (P + P.transpose(-1, -2))
-    resid = (c - x_ref).reshape(B, -1)
-    q = (SQ.transpose(-1, -2) @ resid[..., None])[..., 0]
     return CondensedQP(P=P, q=q, contact=contact,
                        mu=torch.as_tensor(mu, dtype=dtype, device=dev),
                        fz_max=torch.as_tensor(fz_max, dtype=dtype,

@@ -262,7 +262,8 @@ def test_condensed_rollout_launches_the_chol_kernels(trotting, solver,
         solver=solver)(loop, go1_params(F32, loop.sim.pos.device))
     factor = 3 * iters if solver == "pdip" else 3
     solves = 2 * factor if solver == "pdip" else 3 * iters
-    want = {"chol_factor": factor, "chol_solve": solves, "substep_chain": 3}
+    want = {"chol_factor": factor, "chol_solve": solves, "substep_chain": 3,
+            "condense": 3}
     if solver == "admm":                # a step an iteration, one before
         want["admm_step"] = 3 * (iters + 1)
     assert cuda_build.LAUNCHES == want
@@ -270,11 +271,11 @@ def test_condensed_rollout_launches_the_chol_kernels(trotting, solver,
     assert 0.2 < float(final.sim.pos[:, 2].mean()) < 0.4
 
 
-@pytest.fixture(scope="module")
-def admm_qp(trotting):
+def _admm_qp(state):
     """The condensed QP at the ADMM cell's horizon (H=30, n=360) of the
-    first 64 trotting scenarios, with per-scenario mu and fz_max."""
-    loop, params, pattern = trotting
+    first 64 scenarios of a trotting state, with per-scenario mu and
+    fz_max, built as the cell builds it (the build kernel)."""
+    loop, params, pattern = state
     _, stage = convex_mpc.mpc_prepare(loop.controller, params, pattern,
                                       0.01, horizon=30)
     qp = convex_mpc.build_condensed_from_stage(stage, 0.01)
@@ -282,6 +283,11 @@ def admm_qp(trotting):
     mu = torch.linspace(0.35, 0.9, 64, device=dev)
     fz = torch.linspace(140.0, 250.0, 64, device=dev)
     return qp.P[:64], qp.q[:64], mu, fz, qp.contact[:64]
+
+
+@pytest.fixture(scope="module")
+def admm_qp(trotting):
+    return _admm_qp(trotting)
 
 
 def _admm_solve(args, warm, device, dtype):
@@ -294,34 +300,56 @@ def _admm_solve(args, warm, device, dtype):
                                              for w in warm))
 
 
-@pytest.mark.parametrize("start", ["cold", "warm"])
-def test_admm_solve_on_the_card_matches_plain(admm_qp, start):
+def _admm_bracket(qp, start):
     """solve_qp_admm_batched at n=360, B=64, 30 iterations, rho 1e-3 (the
     ADMM cell's), on the card (K4 once, K5 30 times, the step kernel 31
     times) against the plain float32 solve of the same inputs on the CPU,
-    with float64 as the exact reference: the float32 roundings of K4, K5
+    with float64 as the exact reference. The float32 roundings of K4, K5
     and the step differ from the plain versions', and the ill-conditioned
     QP (Hessian eigenvalues 1e-4..62 after scaling) carries any float32
-    solve ~0.1-0.15 N from float64 (CPU). So the card's solve may lie at
-    most 1.5 times the plain solve's distance from float64, plus 0.02 N."""
+    solve's worst scenario ~0.12-0.18 N from float64. That worst scenario
+    is a statistic of the instance: a change of one ulp in some entries
+    of P (the build kernel's P against the plain build's) moved the card's
+    from 0.131 to 0.214 N and plain's from 0.153 to 0.125 N at trot seed
+    1, warm. So over the 64 scenarios the card's solve has to be at least
+    as near float64 as plain's in the median (over trot seeds 1-6, cold
+    and warm, both builds: 0.043-0.050 N against 0.074-0.080), and its
+    worst scenario at most twice plain's (at most 1.71 times there)."""
     warm = None
     if start == "warm":
-        warm = _admm_solve(admm_qp, None, admm_qp[0].device, F32).warm
+        warm = _admm_solve(qp, None, qp[0].device, F32).warm
     cuda_build.LAUNCHES.clear()
-    got = _admm_solve(admm_qp, warm, admm_qp[0].device, F32)
+    got = _admm_solve(qp, warm, qp[0].device, F32)
     assert cuda_build.LAUNCHES == {"chol_factor": 1, "chol_solve": 30,
                                    "admm_step": 31}
-    plain = _admm_solve(admm_qp, warm, "cpu", F32)
-    exact = _admm_solve(admm_qp, warm, "cpu", torch.float64)
+    plain = _admm_solve(qp, warm, "cpu", F32)
+    exact = _admm_solve(qp, warm, "cpu", torch.float64)
     for a in (got.u, *got.warm):
         assert bool(torch.isfinite(a).all())
     assert float(exact.u.abs().max()) > 10.0
-    e_card = float((got.u.cpu().double() - exact.u).abs().max())
-    e_plain = float((plain.u.double() - exact.u).abs().max())
-    print(f"{start}: max |u - u64| card {e_card:.4f} N, plain "
-          f"{e_plain:.4f} N; card vs plain "
-          f"{float((got.u.cpu() - plain.u).abs().max()):.4f} N")
-    assert e_card <= 1.5 * e_plain + 0.02
+    e_card = (got.u.cpu().double() - exact.u).abs().amax(-1)
+    e_plain = (plain.u.double() - exact.u).abs().amax(-1)
+    print(f"{start}: |u - u64| card median {float(e_card.median()):.4f} "
+          f"max {float(e_card.max()):.4f} N, plain median "
+          f"{float(e_plain.median()):.4f} max {float(e_plain.max()):.4f} N;"
+          f" card farther in {int((e_card > e_plain).sum())} of 64")
+    assert float(e_card.median()) <= float(e_plain.median())
+    assert float(e_card.max()) <= 2.0 * float(e_plain.max())
+
+
+@pytest.mark.parametrize("start", ["cold", "warm"])
+def test_admm_solve_on_the_card_matches_plain(admm_qp, start):
+    """The bracket of `_admm_bracket` on the trotting fixture's QP."""
+    _admm_bracket(admm_qp, start)
+
+
+@pytest.mark.parametrize("start", ["cold", "warm"])
+@pytest.mark.parametrize("seed", range(2, 7))
+def test_admm_solve_on_the_card_matches_plain_seeds(dev, seed, start):
+    """The same bracket on the fixture's recipe from trot seeds 2-6."""
+    if seed not in _TROT_SEEDS:
+        _TROT_SEEDS[seed] = _trot(dev, 0, seed)
+    _admm_bracket(_admm_qp(_TROT_SEEDS[seed]), start)
 
 
 def test_admm_step_kernel_matches_plain_step(admm_qp):
@@ -359,6 +387,133 @@ def test_admm_step_kernel_matches_plain_step(admm_qp):
     with pytest.raises(TypeError):
         admm_kernel.admm_step(*(None if t is None else t.double()
                                 for t in a), **kw)
+
+
+# --- the condensed QP's build kernel -------------------------------------
+
+def _ulp32(x):
+    """The spacing of float32 at |x| (float64 in, float64 out)."""
+    a = x.abs().float()
+    return (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+
+
+@pytest.mark.parametrize("batch,horizon", [(4096, 30), (1, 10)])
+def test_condense_kernel_matches_plain(trotting, batch, horizon):
+    """The build kernel, one launch, on the trotting batch's QP (its 257
+    scenarios repeated up to the ADMM cell's B=4096 at H=30; the first at
+    H=10) against the plain build in float64 on the same float32 inputs:
+    every P entry within 2 float32 ulps of itself plus 1e-9 of the
+    largest, P exactly symmetric, q within relative 1e-6."""
+    from legged_mpc_control_tpu_torch.ops import condense_kernel
+
+    loop, params, pattern = trotting
+    _, st = convex_mpc.mpc_prepare(loop.controller, params, pattern, 0.01,
+                                   horizon=horizon)
+    idx = torch.arange(batch, device=st.x0.device) % st.x0.shape[0]
+    args = tuple(t[idx] for t in (st.x0, st.x_ref, st.A_seq, st.B,
+                                  st.contact, st.q_weights, st.r_weights))
+    assert 0.0 < float(args[4].mean()) < 1.0
+    before = cuda_build.LAUNCHES["condense"]
+    P, q = condense_kernel.condense(*args, 0.01)
+    assert cuda_build.LAUNCHES["condense"] == before + 1
+    assert P.dtype == q.dtype == F32
+    assert torch.equal(P, P.transpose(-1, -2))
+    worst = 0.0
+    for lo in range(0, batch, 512):    # the float64 build in slices
+        P64, q64 = condense_kernel.condense_plain(
+            *(t[lo:lo + 512].double() for t in args), 0.01)
+        Pk, qk = P[lo:lo + 512].double(), q[lo:lo + 512].double()
+        err = (Pk - P64).abs()
+        top = P64.abs().amax((-1, -2), keepdim=True)
+        worst = max(worst, float((err / _ulp32(P64)).max()))
+        assert bool((err <= 2 * _ulp32(P64) + 1e-9 * top).all())
+        torch.testing.assert_close(qk, q64, rtol=1e-6,
+                                   atol=1e-9 * float(q64.abs().max()))
+        del P64, q64, Pk, err
+    print(f"B={batch} H={horizon}: max |P - P64| {worst:.3f} float32 ulps")
+
+
+def test_condense_allocates_p_and_q_only(trotting):
+    """At the ADMM cell's shape (B=4096, H=30, n=360) the build through
+    `build_condensed_from_stage` allocates P and q and nothing of their
+    size besides: the device memory's peak rises by P's and q's bytes
+    plus less than a tenth of P's."""
+    loop, params, pattern = trotting
+    _, st = convex_mpc.mpc_prepare(loop.controller, params, pattern, 0.01,
+                                   horizon=30)
+    idx = torch.arange(4096, device=st.x0.device) % st.x0.shape[0]
+    st = type(st)(*(t[idx] for t in st))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    qp = convex_mpc.build_condensed_from_stage(st, 0.01)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    pq = (qp.P.numel() + qp.q.numel()) * 4
+    assert qp.P.shape == (4096, 360, 360)
+    print(f"peak rise {rise / 2 ** 20:.1f} MiB, P and q {pq / 2 ** 20:.1f} "
+          f"MiB")
+    assert pq <= rise < pq + 0.1 * qp.P.numel() * 4
+
+
+def test_condense_dispatch(dev):
+    """CUDA float32 up to H=64 takes the kernel, CPU tensors the plain
+    build (no launch); CUDA float64 and H=65 raise ValueError naming the
+    limit, with no launch."""
+    from legged_mpc_control_tpu_torch.ops import condense_kernel
+
+    assert condense_kernel.max_horizon() == 64
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def case(H, dtype):
+        r = lambda *s: torch.rand(s, generator=gen, device=dev, dtype=dtype)
+        return (r(2, 12), r(2, H, 12), r(2, H, 12, 12), r(2, 12, 12),
+                (r(2, H, 4) < 0.5).to(dtype), r(12) + 0.5, r(12) + 0.5)
+    for H, dtype, to, launches in ((64, F32, dev, 1), (65, F32, "cpu", 0),
+                                   (8, torch.float64, "cpu", 0)):
+        before = cuda_build.LAUNCHES["condense"]
+        P, q = condense_kernel.condense(*(t.to(to) for t in case(H, dtype)),
+                                        0.01)
+        assert cuda_build.LAUNCHES["condense"] == before + launches
+        assert P.shape == (2, 12 * H, 12 * H) and P.dtype == dtype
+        assert P.device.type == torch.device(to).type
+        assert bool(torch.isfinite(P).all()) and bool(torch.isfinite(q).all())
+    for H, dtype, limit in ((65, F32, "largest, 64"),
+                            (8, torch.float64, "float32")):
+        before = cuda_build.LAUNCHES["condense"]
+        with pytest.raises(ValueError, match=limit):
+            condense_kernel.condense(*case(H, dtype), 0.01)
+        assert cuda_build.LAUNCHES["condense"] == before
+
+
+def test_condense_kernel_keeps_the_admm_solution(trotting):
+    """The bracket of tests/test_torch_admm_h30.py for a float32 build: the
+    thirty-iteration ADMM solution (rho 1e-3, in float64) of the QP the
+    kernel builds from float32 inputs at H=30 lies within 0.08 N of the
+    float64 build's (the plain one, on the CPU), on the first 64 trotting
+    scenarios."""
+    from legged_mpc_control_tpu_torch.mpc import admm, qp_builder
+
+    loop, params, pattern = trotting
+    _, st = convex_mpc.mpc_prepare(loop.controller, params, pattern, 0.01,
+                                   horizon=30)
+    st = type(st)(*(t[:64] for t in st))
+    before = cuda_build.LAUNCHES["condense"]
+    qp32 = convex_mpc.build_condensed_from_stage(st, 0.01)
+    assert cuda_build.LAUNCHES["condense"] == before + 1
+    qp64 = qp_builder.build_condensed_qp(
+        *(t.to("cpu", torch.float64) for t in st), 0.01)
+
+    def solve(qp):
+        qp = type(qp)(*(t.to("cpu", torch.float64) for t in qp))
+        return admm.solve_qp_admm_batched(qp.P, qp.q, qp.mu, qp.fz_max,
+                                          qp.contact, iters=30, rho=1e-3).u
+    u64 = solve(qp64)
+    err = (solve(qp32) - u64).abs().amax(-1)
+    print(f"max |u(kernel build) - u(float64 build)| {float(err.max()):.4f}"
+          f" N of {float(u64.abs().max()):.1f} N")
+    assert float(u64.abs().max()) > 10.0
+    assert float(err.max()) < 0.08, err
 
 
 def test_kf1_rollout_launches_the_kf1_chain(trotting_kf1):
@@ -421,7 +576,7 @@ def test_single_robot_tick_on_the_card(dev):
                                                         0.25))))
         loop = step.closed_loop_tick(loop, params, pattern)
     assert cuda_build.LAUNCHES == {"chol_factor": 6 * 15,
-                                   "chol_solve": 6 * 30}
+                                   "chol_solve": 6 * 30, "condense": 6}
     assert bool(torch.isfinite(loop.sim.pos).all())
     assert bool(torch.isfinite(loop.controller.ctrl.optimized_input).all())
     assert 0.2 < float(loop.sim.pos[0, 2]) < 0.4
@@ -503,7 +658,8 @@ def test_wbc_twin_tick_on_the_card(dev):
         loop = step.closed_loop_tick_wb(loop, params, pattern, model,
                                         low_level_type=1)
     assert cuda_build.LAUNCHES == {"chol_factor": 2 * (15 + 32),
-                                   "chol_solve": 2 * (30 + 32)}
+                                   "chol_solve": 2 * (30 + 32),
+                                   "condense": 2}
     assert bool(torch.isfinite(loop.sim.q).all())
     assert bool(torch.isfinite(loop.controller.ctrl.joint_tau_tgt).all())
 
@@ -1029,7 +1185,7 @@ def test_lci_walk_tick_chol_n96(dev):
     finally:
         chol_kernel.cholesky_cuda = factor
     assert cuda_build.LAUNCHES == {"chol_factor": 3 * 12,
-                                   "chol_solve": 3 * 24}
+                                   "chol_solve": 3 * 24, "condense": 3}
     assert all(K.shape == (1, 96, 96) for K in seen)
     gen = torch.Generator(device=dev).manual_seed(2)
     for K in seen[::5]:

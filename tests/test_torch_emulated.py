@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from legged_mpc_control_tpu_torch.config import a1_params, go1_params
+from legged_mpc_control_tpu_torch.constants import GRAVITY
 from legged_mpc_control_tpu_torch.control import sensors, step
 from legged_mpc_control_tpu_torch.mpc import (
     admm,
@@ -49,6 +50,7 @@ from legged_mpc_control_tpu_torch.ops import (
     admm_kernel,
     chol_kernel,
     ci_kernel,
+    condense_kernel,
     substep_kernel,
 )
 from legged_mpc_control_tpu_torch.ops.cuda_build import CSRC_DIR
@@ -306,6 +308,17 @@ extern "C" void admm_step_emu(const float* xt, const float* x,
     admm_step_kernel(xt, x, z, y, G, h, q, x_out, z_out, y_out, rhs, legs,
                      rho, sigma, alpha, beta, neg);
   });
+}
+"""
+
+CONDENSE_LAUNCH = r"""
+extern "C" void condense_emu(const float* x0, const float* xref,
+    const float* A, const float* Bm, const float* contact, const float* qw,
+    const float* rw, int qs, int rs, float* P, float* q, int B, int H,
+    double dt, double g) {
+  const Args a{x0, xref, A, Bm, contact, qw, rw, P, q, qs, rs, H, dt,
+               g * dt};
+  run_blocks(B, THREADS, [&]() { condense_kernel(a); });
 }
 """
 
@@ -893,3 +906,73 @@ def test_admm_step_emulated_matches_plain(admm_lib, trot3, monkeypatch,
         assert float((a - b).abs().max()) <= 5e-4 * float(b.abs().max())
     print(f"H={horizon} {start}: bit for bit "
           f"{all(torch.equal(a, b) for a, b in zip(got.warm, want.warm))}")
+
+
+@pytest.fixture(scope="module")
+def condense_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ (C++20) to compile the CUDA sources for the "
+                    "CPU")
+    lib = _emulated("condense", CONDENSE_LAUNCH,
+                    tmp_path_factory.mktemp("emulated_condense"), edits=(
+        ("extern __shared__ double smem[];",
+         "static double smem[smem_doubles(MAX_H)];"),))
+    lib.condense_emu.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_double] * 2)
+    return lib
+
+
+def _ulp32(x):
+    """The spacing of float32 at |x| (float64 in, float64 out)."""
+    a = x.abs().float()
+    return (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+
+
+# H=5 leaves the last 2 x 2 tile of block pairs half outside the matrix
+@pytest.mark.parametrize("horizon", [5, 10, 30])
+def test_condense_emulated_matches_plain(condense_lib, trot3, horizon):
+    """The build kernel on the port's own `mpc_prepare` QP of the trotting
+    Go1 batch of 3, the third with leg 1 in swing over the whole horizon,
+    and a fourth scenario, the first's state with every leg in stance
+    throughout; Q per scenario (stride 12), R shared (stride 0). Float32 in, held to the plain version in float64 on
+    the same inputs: every P entry within 2 float32 ulps of itself plus
+    1e-9 of the largest, P exactly symmetric, the swing legs' rows and
+    columns exactly zero but for R on the diagonal, q within relative
+    1e-6."""
+    loop, params, pattern = trot3
+    _, st = convex_mpc.mpc_prepare(loop.controller, params, pattern, 0.01,
+                                   horizon=horizon)
+
+    def four(t):
+        return torch.cat([t, t[:1]]).contiguous()
+    x0, x_ref, A, Bm, contact, qw = (four(t) for t in (
+        st.x0, st.x_ref, st.A_seq, st.B, st.contact, st.q_weights))
+    contact[2, :, 1] = 0.0
+    contact[3] = 1.0
+    rw = st.r_weights[0].contiguous()
+    assert 0.0 < float(contact[:2].mean()) < 1.0
+    Bn, H, n = 4, horizon, 12 * horizon
+    P, q = torch.empty((Bn, n, n)), torch.empty((Bn, n))
+    condense_lib.condense_emu(
+        *[t.data_ptr() for t in (x0, x_ref, A, Bm, contact, qw, rw)], 12, 0,
+        P.data_ptr(), q.data_ptr(), Bn, H, 0.01, GRAVITY)
+    P64, q64 = condense_kernel.condense_plain(
+        *(t.double() for t in (x0, x_ref, A, Bm, contact, qw, rw)), 0.01)
+    err = (P.double() - P64).abs()
+    top = P64.abs().amax((-1, -2), keepdim=True)
+    print(f"H={H}: max |P - P64| / ulp32 {float((err / _ulp32(P64)).max())}"
+          f", / max|P64| {float((err / top).max()):.2e}; max |q - q64| / "
+          f"|q64| {float(((q.double() - q64).abs() / q64.abs()).nan_to_num().max()):.2e}")
+    assert bool(torch.isfinite(P).all()) and bool(torch.isfinite(q).all())
+    assert bool((err <= 2 * _ulp32(P64) + 1e-9 * top).all())
+    assert torch.equal(P, P.transpose(-1, -2))
+    swing = (contact.repeat_interleave(3, -1) == 0).reshape(Bn, n)
+    assert bool(swing[2].any()) and not bool(swing[3].any())
+    off = swing[:, :, None] | swing[:, None, :]
+    off &= ~torch.eye(n, dtype=torch.bool)
+    assert bool((P[off] == 0).all())
+    diag = P.diagonal(dim1=-2, dim2=-1)
+    assert torch.equal(diag[swing], rw.repeat(H).expand(Bn, n)[swing])
+    torch.testing.assert_close(q.double(), q64, rtol=1e-6,
+                               atol=1e-9 * float(q64.abs().max()))
